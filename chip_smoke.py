@@ -25,9 +25,37 @@ JAX.  Phases, each fatal:
    tally sums to the batch, the first 4096 keys give the JAX reference's
    pinned tally, and 2048 outcomes equal the serial C++ oracle's;
 6. timings with CUDA events (median of 5 after a warm-up) beside the card's
-   name and power limit.
+   name and power limit;
+7. the chunked window — ``generate_trace(seed=16, n=131072, nphys=256,
+   mem_words=4096, working_set_words=1024)`` as a ``TrialKernel`` on the
+   card — preprocessed at S = 65536 (C = 2); its last boundary equals the
+   C++ golden replay's final state;
+8. the chunk kernel (K2) against its plain version on the same device
+   tensors (sets, live-step counts and the five flags bitwise equal):
+   (b) 2048 lanes of every fault kind with ``may_latch`` at a shadow
+   coverage of 0.5, a third of them carried in with seeded sets and
+   negative coordinates, on the NOP-padded last chunk of S = 15000 (C =
+   9), so that some are detected; (c) the same through the K = 4 build,
+   where some sets overflow;
+9. the chunked main path, ``ChunkedCampaign(kernel, chunk=65536)
+   .outcomes_from_keys(...512 keys..., "regfile")``, with K2's launch
+   count zeroed just before it: one K2 launch per fast wave, no call of the
+   plain version; then batch (a): each of the main path's K2 waves (the
+   512 regfile lanes of ``trial_keys(campaign_key(163), 512)``, each on its
+   landing chunk, with the lanes carried into chunk 1 and the null
+   padding) against the plain version on its own inputs; gates (i) taint
+   = exact engine on 64 keys of ``campaign_key(161)``, (ii) the 512
+   outcomes = the serial C++ oracle, (iii) the 64 taint outcomes = the JAX
+   reference's, pinned, (iv) taint = exact at S = 15000 with
+   ``carry_horizon=2``, some lanes carried;
+10. the chunked path's timings (median of 3 after a warm-up): trials/s of
+    ``outcomes_from_keys``, K2 on each of the main path's waves and its
+    plain version (timed once, in (a)), the chunk record, the setup
+    gathers, the exact fallback and the preprocessing; K2's bound over the
+    steps those waves need.
 
-The line before the last is the kernels' JSON record; the last line is
+Each phase prints its seconds.  The line before the last is the kernels'
+JSON record (K1 ``taint_fast`` and K2 ``taint_chunk``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -50,7 +78,9 @@ N_PIN = 4096
 PIN_TALLY = [3095, 450, 551, 0]
 N_ORACLE = 2048
 N_MIXED = 16384
-REPS = 5
+REPS = 5                        # phase 6: median of 5
+REPS_CHUNKED = 3                # phase 10: each run holds a 65536-step
+                                # exact fallback of several seconds
 MIXED_COVERAGE = 0.5            # shadow coverage of batches (b) and (c)
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # K1's work is 32-bit integer compare/select/logic: 132 SMs x 64 INT32
@@ -73,6 +103,23 @@ OPS_LOAD = 11           # + a lookup: golden_here, the value, the escape
 OPS_STORE = 3           # + a remove: the store's own tests
 OPS_WRITE = 4           # + a remove: the writeback's own tests
 OPS_LANDING = 3         # + a lookup and an upsert: the REGFILE flip
+
+# the chunked path (phases 7-10): bench.py:505-510's window and chunk
+CHUNK_WINDOW = dict(seed=16, n=131072, nphys=256, mem_words=4096,
+                    working_set_words=1024)
+CHUNK = 65536
+CHUNK_SMALL = 15000             # a second chunking: C = 9, NOP-padded tail
+N_CHUNK_KEYS = 512
+CHUNK_SEED = 163
+GATE_SEED = 161
+N_GATE = 64
+N_CHUNK_MIXED = 2048
+# the JAX reference's taint-engine outcomes (0 masked, 1 sdc, 2 due,
+# 3 detected) for trial_keys(campaign_key(161), 64) on that window at
+# chunk 65536 (shrewd_tpu ChunkedCampaign on CPU;
+# tests/test_torch_chunked.py recomputes it and holds it equal)
+PIN_CHUNKED = ("00000000022200000200000200000000"
+               "00000020000220200020000022000000")
 
 
 def log(msg: str) -> None:
@@ -141,14 +188,16 @@ def mixed_faults(torch, trace, n_lanes: int, seed: int, device):
 
 
 def k1_operations(opcode: np.ndarray, cycle: np.ndarray,
-                  steps: np.ndarray, k: int) -> int:
+                  steps: np.ndarray, k: int,
+                  first: np.ndarray | None = None) -> int:
     """K1's operations on a batch of regfile lanes, from the per-step
     counts above and this run's data: lane l ran ``steps[l]`` live steps
     and its fault landed at step ``cycle[l]`` if that step was live.  A
     store or register write runs a remove or an upsert, depending on the
     lane's deviation; the count takes the cheaper remove, and leaves out
     the store and write of the step on which a lane died, so it is a
-    floor."""
+    floor.  ``first[l]`` (default 0) is the step from which lane l's work
+    is counted; a lane with ``first[l] >= steps[l]`` counts nothing."""
     from shrewd_tpu_torch.isa import uops as U
     lookup, remove, upsert = 4 * k, 2 * k, 7 * k + 3
     ld = U.is_load(opcode).astype(np.int64)
@@ -158,10 +207,357 @@ def k1_operations(opcode: np.ndarray, cycle: np.ndarray,
     last = steps.astype(np.int64) - 1
     if (last < 0).any():
         raise ValueError("a lane ran no step")
-    prefix = np.cumsum(full)
-    ops = int((prefix[last] - full[last] + live[last]).sum())
-    landed = int((cycle.astype(np.int64) <= last).sum())
+    first = (np.zeros_like(last) if first is None
+             else first.astype(np.int64))
+    counted = first <= last
+    last, first = last[counted], first[counted]
+    cycle = cycle.astype(np.int64)[counted]
+    before = np.concatenate([[0], np.cumsum(full)])   # work of steps < i
+    ops = int((before[last] - before[first] + live[last]).sum())
+    landed = int(((cycle >= first) & (cycle <= last)).sum())
     return ops + landed * (OPS_LANDING + lookup + upsert)
+
+
+def chunk_faults(trace, lanes: int, n_real: int, S: int, seed: int):
+    """Chunk-local faults of every kind (1-9), drawn with numpy from a
+    seed: a third carried in (coordinates in [-S, 0)), the rest landing in
+    the chunk's first ``n_real`` µops → (fields, carried mask)."""
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(1, 10, lanes)
+    carried = rng.random(lanes) < 1 / 3
+    at = np.where(carried, rng.integers(-S, 0, lanes),
+                  rng.integers(0, n_real, lanes))
+    cycle = np.where(kind == 1, at, rng.integers(-S, S, lanes))
+    entry = np.where(kind == 1, rng.integers(0, trace.nphys, lanes), at)
+    return (kind, cycle, entry, rng.integers(0, 32, lanes),
+            rng.random(lanes, dtype=np.float32)), carried
+
+
+def seeded_sets(carried: np.ndarray, k: int, nphys: int, mem_words: int,
+                seed: int):
+    """Deviation sets for the carried lanes, drawn with numpy: 1..k live
+    slots at random positions (EMPTY holes between them), distinct
+    register and memory tags, random values; EMPTY sets elsewhere."""
+    rng = np.random.default_rng(seed)
+    tags = np.full((carried.size, k), -1, np.int64)
+    vals = np.zeros((carried.size, k), np.int64)
+    for lane in np.nonzero(carried)[0]:
+        m = int(rng.integers(1, k + 1))
+        slots = rng.choice(k, m, replace=False)
+        tags[lane, slots] = rng.choice(nphys + mem_words, m, replace=False)
+        vals[lane, slots] = rng.integers(0, 1 << 32, m)
+    return tags, vals
+
+
+def wave_lanes(faults, tags0, S: int):
+    """The lanes of one of the chunked main path's K2 waves → (landing in
+    this chunk, carried in with a non-empty set, null padding) masks."""
+    from shrewd_tpu_torch.ops.taint import EMPTY
+    kind = faults.kind.cpu().numpy()
+    cyc = faults.cycle.cpu().numpy().astype(np.int64)
+    if not np.isin(kind, (0, 1)).all():
+        raise ValueError("a main-path wave holds regfile and null lanes")
+    landing = (kind == 1) & (cyc >= 0) & (cyc < S)
+    carried = (tags0 != EMPTY).any(1).cpu().numpy()
+    return landing, carried, kind == 0
+
+
+def k2_operations(opcode: np.ndarray, faults, tags0, steps: np.ndarray,
+                  k: int) -> tuple[int, int]:
+    """K2's operations on one of the chunked main path's waves, counted as
+    K1's (the same step body) over the steps the chunk function needs: a
+    lane's work starts at its landing step, or at step 0 if it carries a
+    non-empty set in; a lane that does neither runs the golden run and
+    needs none → (operations, lane-steps counted)."""
+    S = opcode.shape[0]
+    landing, carried, _ = wave_lanes(faults, tags0, S)
+    cyc = faults.cycle.cpu().numpy().astype(np.int64)
+    first = np.where(landing, cyc, np.where(carried, 0, S))
+    ops = k1_operations(opcode, np.where(landing, cyc, S), steps, k, first)
+    return ops, int(np.maximum(steps.astype(np.int64) - first, 0).sum())
+
+
+def compare_chunk(torch, got, ref, what: str) -> int:
+    """Hold K2's result tuple against the plain version's, bitwise;
+    returns the largest absolute difference (0)."""
+    err = 0
+    names = ("tags", "vals", "steps", "detected", "trapped", "diverged",
+             "escaped", "overflowed")
+    for name, a, b in zip(names, got, ref):
+        if a.shape != b.shape:
+            fail(f"{what}: {name} shape {tuple(a.shape)} vs "
+                 f"{tuple(b.shape)}")
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+        if not torch.equal(a.to(torch.int64), b.to(torch.int64)):
+            fail(f"{what}: K2 and plain version differ in {name} on "
+                 f"{int((d != 0).sum())} entries")
+    return err
+
+
+def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
+    """Phases 7-10 → (timings, the kernels-line record of K2)."""
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.isa import uops as U
+    from shrewd_tpu_torch.models.o3 import O3Config, compute_shadow_cov
+    from shrewd_tpu_torch.ops import chunked as CH
+    from shrewd_tpu_torch.ops import classify as C
+    from shrewd_tpu_torch.ops import taint_cuda
+    from shrewd_tpu_torch.ops import window as W
+    from shrewd_tpu_torch.ops.chunked import (ChunkedCampaign,
+                                              preprocess_window)
+    from shrewd_tpu_torch.ops.taint import setup_gather, taint_chunk
+    from shrewd_tpu_torch.ops.taint_cuda import taint_chunk_cuda
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.utils import prng
+
+    # 7. the chunked window
+    trace = native.generate_trace(**CHUNK_WINDOW)
+    kernel = TrialKernel(trace, O3Config(), device=dev)
+    t0 = time.monotonic()
+    win = preprocess_window(kernel, CHUNK)
+    t_pre = time.monotonic() - t0
+    final_reg, final_mem = native.golden_replay(trace)
+    if not (np.array_equal(win.gb_reg[win.C], final_reg)
+            and np.array_equal(win.gb_mem[win.C], final_mem)):
+        fail("the window's last boundary differs from the golden replay")
+    log(f"window n={trace.n} S={win.S} C={win.C}: preprocessed in "
+        f"{t_pre:.3f} s, last boundary == C++ golden final state")
+    marks("7 window")
+
+    # 8. K2 against its plain version on the card; batch (a) is the main
+    # path's own waves, held in phase 9 right after the counted run
+    camp = ChunkedCampaign(kernel, chunk=CHUNK)
+    k = kernel.cfg.taint_k
+    keys = prng.trial_keys(prng.campaign_key(CHUNK_SEED, dev), N_CHUNK_KEYS)
+    faults = kernel.sample_batch(keys, "regfile")
+    max_err = 0
+    small = ChunkedCampaign(kernel, chunk=CHUNK_SMALL)
+    last = small.C - 1
+    n_real = trace.n - last * CHUNK_SMALL
+    tr_s, _, gold_s = small.chunk_record(last)
+    # coverage 0.5 on the chunk's real µops, 0 on its NOP padding (as the
+    # driver pads it)
+    cov_s = torch.as_tensor(compute_shadow_cov(
+        U.opclass_of(trace.opcode[last * CHUNK_SMALL:]),
+        O3Config(shadow_coverage=[MIXED_COVERAGE] * U.N_OPCLASSES))[0],
+        device=dev)
+    cov_s = torch.cat([cov_s, torch.zeros(CHUNK_SMALL - n_real,
+                                          device=dev)])
+    fields, carried = chunk_faults(trace, N_CHUNK_MIXED, n_real,
+                                   CHUNK_SMALL, 17)
+    from shrewd_tpu_torch.compat import fault_from_arrays
+    mixed = fault_from_arrays(*fields, dev)
+    reg0_s = torch.as_tensor(small.gb_reg[last].astype(np.int64),
+                             device=dev)
+    setup_s = setup_gather(gold_s, tr_s, reg0_s, mixed)
+    for label, kk in (("(b) mixed kinds, carried sets", k),
+                      ("(c) mixed kinds, carried sets, K=4", 4)):
+        tags0, vals0 = seeded_sets(carried, kk, trace.nphys,
+                                   trace.mem_words, 23)
+        args = (gold_s, tr_s, cov_s, mixed, *setup_s,
+                torch.as_tensor(tags0, device=dev),
+                torch.as_tensor(vals0, device=dev))
+        t0 = time.monotonic()
+        got = taint_chunk_cuda(*args, k=kk, may_latch=True)
+        torch.cuda.synchronize()
+        ref = taint_chunk(*args, k=kk, may_latch=True)
+        max_err = max(max_err, compare_chunk(torch, got, ref, label))
+        n_det, n_ovf = int(got[3].sum()), int(got[7].sum())
+        log(f"K2 vs plain {label}: {N_CHUNK_MIXED} lanes ({int(carried.sum())}"
+            f" carried) on chunk {last} of S={CHUNK_SMALL} ({n_real} µops"
+            f" + {CHUNK_SMALL - n_real} NOPs) equal, {n_det} detected, "
+            f"{int(got[4].sum())} trapped, {n_ovf} overflowed "
+            f"({time.monotonic() - t0:.1f} s)")
+        if kk == k and n_det == 0:
+            fail("the mixed-kind chunk batch detected no fault")
+        if kk == 4 and n_ovf == 0:
+            fail("the K=4 chunk batch overflowed no set")
+    marks("8 K2 vs plain")
+
+    # 9. the chunked main path, counted; each K2 launch's inputs and result
+    # are kept for batch (a) and the timings
+    exact_log: list = []
+    run_exact = camp._outcomes_exact
+
+    def timed_exact(f_host, outcomes, land_chunk, st):
+        torch.cuda.synchronize()
+        t0, w0 = time.monotonic(), st["waves"]
+        run_exact(f_host, outcomes, land_chunk, st)
+        torch.cuda.synchronize()
+        exact_log.append((time.monotonic() - t0, int(land_chunk.size),
+                          st["waves"] - w0))
+
+    camp._outcomes_exact = timed_exact
+    plain_calls = [0]
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return taint_chunk(*a, **kw)
+
+    main_waves: list = []
+
+    def kept_launch(*a, **kw):
+        got = taint_chunk_cuda(*a, **kw)
+        main_waves.append((a, kw, got))
+        return got
+
+    CH.taint_chunk_cuda = kept_launch
+    taint_cuda.taint_chunk = counted_plain
+    taint_chunk_cuda.launches = 0
+    t0 = time.monotonic()
+    out = camp.outcomes_from_keys(keys, "regfile")
+    torch.cuda.synchronize()
+    t_main = time.monotonic() - t0
+    launches = taint_chunk_cuda.launches
+    CH.taint_chunk_cuda = taint_chunk_cuda
+    st = dict(camp.last_stats)
+    fast_waves = st["waves"] - sum(x[2] for x in exact_log)
+    if launches < 1 or launches != fast_waves:
+        fail(f"{launches} K2 launches for {fast_waves} fast waves")
+    if plain_calls[0]:
+        fail(f"the main path called the plain chunk scan {plain_calls[0]} "
+             f"times")
+    tally = np.bincount(out, minlength=C.N_OUTCOMES).tolist()
+    log(f"main path outcomes_from_keys({N_CHUNK_KEYS}, 'regfile') at "
+        f"S={CHUNK}: tally {tally}, {launches} K2 launch(es) for "
+        f"{fast_waves} fast waves, 0 plain calls, stats {st}, "
+        f"{t_main:.1f} s")
+    # (a) K2 against its plain version on each of the main path's waves
+    plain_wave_ms = []
+    for w, (a, kw, got) in enumerate(main_waves):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = taint_chunk(*a, **kw)
+        end.record()
+        end.synchronize()
+        plain_wave_ms.append(start.elapsed_time(end))
+        max_err = max(max_err, compare_chunk(torch, got, ref,
+                                             f"(a) main-path wave {w}"))
+        lanes = wave_lanes(a[3], a[7], CHUNK)
+        log(f"K2 vs plain (a) main-path wave {w}: {a[3].kind.shape[0]} "
+            f"lanes ({int(lanes[0].sum())} landing, {int(lanes[1].sum())} "
+            f"carried in, {int(lanes[2].sum())} null) equal, "
+            f"{int(got[6].sum())} escaped, "
+            f"{int((got[3] | got[4] | got[5]).sum())} frozen; plain "
+            f"{plain_wave_ms[-1] / 1e3:.1f} s")
+    gate_keys = prng.trial_keys(prng.campaign_key(GATE_SEED, dev), N_GATE)
+    fast = ChunkedCampaign(kernel, chunk=CHUNK, engine="taint")
+    exact = ChunkedCampaign(kernel, chunk=CHUNK, engine="exact")
+    o_fast = fast.outcomes_from_keys(gate_keys, "regfile")
+    o_exact = exact.outcomes_from_keys(gate_keys, "regfile")
+    if not np.array_equal(o_fast, o_exact):
+        fail(f"gate (i): taint and exact engines differ on "
+             f"{int((o_fast != o_exact).sum())}/{N_GATE} keys")
+    oracle = kernel.oracle_outcomes(faults)
+    if not np.array_equal(out, oracle):
+        fail(f"gate (ii): {int((out != oracle).sum())}/{N_CHUNK_KEYS} "
+             f"outcomes differ from the C++ oracle")
+    got_pin = "".join(map(str, o_fast.tolist()))
+    if got_pin != PIN_CHUNKED:
+        fail(f"gate (iii): taint outcomes {got_pin} != JAX reference "
+             f"{PIN_CHUNKED}")
+    hz_fast = ChunkedCampaign(kernel, chunk=CHUNK_SMALL, carry_horizon=2,
+                              engine="taint")
+    hz_exact = ChunkedCampaign(kernel, chunk=CHUNK_SMALL, carry_horizon=2,
+                               engine="exact")
+    o_hf = hz_fast.outcomes_from_keys(gate_keys, "regfile")
+    o_he = hz_exact.outcomes_from_keys(gate_keys, "regfile")
+    if not np.array_equal(o_hf, o_he):
+        fail(f"gate (iv): at S={CHUNK_SMALL}, horizon 2 the engines differ "
+             f"on {int((o_hf != o_he).sum())}/{N_GATE} keys")
+    if hz_fast.last_stats["carried"] < 1:
+        fail(f"gate (iv): no lane was carried at S={CHUNK_SMALL}")
+    if plain_calls[0]:
+        fail("the gates called the plain chunk scan")
+    log(f"gates: (i) taint == exact on {N_GATE} keys, (ii) "
+        f"{N_CHUNK_KEYS} outcomes == C++ oracle, (iii) == JAX pin, (iv) "
+        f"S={CHUNK_SMALL} horizon 2 taint == exact, "
+        f"{hz_fast.last_stats['carried']} carried")
+    marks("9 chunked main path + gates")
+
+    # 10. timings
+    def host_ms(fn):
+        fn()
+        times = []
+        for _ in range(REPS_CHUNKED):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        return statistics.median(times)
+
+    del exact_log[:]
+    e2e_ms = time_ms(torch, lambda: camp.outcomes_from_keys(keys, "regfile"),
+                     REPS_CHUNKED)
+    # the exact fallback inside each timed run (none: 0 lanes, 0 ms)
+    fb_ms = statistics.median([x[0] * 1e3 for x in exact_log[1:]] or [0.0])
+    fb_lanes = exact_log[-1][1] if exact_log else 0
+    k2_wave_ms = [time_ms(torch, lambda a=a, kw=kw: taint_chunk_cuda(*a, **kw),
+                          REPS_CHUNKED) for a, kw, _ in main_waves]
+    rec_ms = time_ms(torch, lambda: camp.chunk_record(0), REPS_CHUNKED)
+    a0 = main_waves[0][0]
+    reg00 = torch.as_tensor(win.gb_reg[0].astype(np.int64), device=dev)
+    setup_ms = time_ms(torch, lambda: setup_gather(a0[0], a0[1], reg00,
+                                                   a0[3]), REPS_CHUNKED)
+
+    def rebuild():
+        W.clear_registry()
+        preprocess_window(kernel, CHUNK)
+
+    pre_ms = host_ms(rebuild)
+    if plain_calls[0]:
+        fail("the timed main path called the plain chunk scan")
+    taint_cuda.taint_chunk = taint_chunk
+
+    # K2's bound over the main path's waves: the same step body as K1, so
+    # K1's per-step counts, over the steps the chunk function needs (from a
+    # lane's landing, or from step 0 for a lane carrying a set in; a null
+    # lane or one landing in a later chunk needs none); bytes with the
+    # seeds in and the sets out
+    bound = {"ops": [], "needed_lane_steps": [], "live_lane_steps": [],
+             "bytes": [], "ops_ms": [], "bytes_ms": []}
+    for a, kw, got in main_waves:
+        B = a[3].kind.shape[0]
+        ops, needed = k2_operations(a[1].opcode.cpu().numpy(), a[3], a[7],
+                                    got[2].cpu().numpy(), k)
+        bytes_moved = (16 * CHUNK * 4 + B * 8 * 4 + 2 * k * B * 4
+                       + B * 4 * 4 + 2 * k * B * 4)
+        bound["ops"].append(ops)
+        bound["needed_lane_steps"].append(needed)
+        bound["live_lane_steps"].append(int(got[2].sum()))
+        bound["bytes"].append(bytes_moved)
+        bound["ops_ms"].append(ops / H100_INT32_OPS_PER_S * 1e3)
+        bound["bytes_ms"].append(bytes_moved / H100_BYTES_PER_S * 1e3)
+    bound_ms = sum(max(o, b) for o, b in zip(bound["ops_ms"],
+                                             bound["bytes_ms"]))
+    by_ops = sum(bound["ops_ms"]) >= sum(bound["bytes_ms"])
+    timings = {
+        "chunked_outcomes_ms": e2e_ms,
+        "chunked_trials_per_s": N_CHUNK_KEYS / (e2e_ms / 1e3),
+        "k2_ms": sum(k2_wave_ms), "k2_wave_ms": k2_wave_ms,
+        "k2_plain_ms": sum(plain_wave_ms), "k2_plain_wave_ms": plain_wave_ms,
+        "k2_bound_ms": bound_ms,
+        "k2_waves": [[CHUNK, a[3].kind.shape[0]] for a, _, _ in main_waves],
+        **{f"k2_{key}": v for key, v in bound.items()},
+        "record_chunk_ms": rec_ms, "setup_gather_ms": setup_ms,
+        "exact_fallback_ms": fb_ms, "exact_fallback_lanes": fb_lanes,
+        "preprocess_ms": pre_ms, "main_stats": st}
+    # ms, plain_ms and bound_ms cover the main path's K2 launches together
+    record = {
+        "name": "taint_chunk", "route": "cuda",
+        "source": "shrewd_tpu_torch/csrc/taint_fast.cu",
+        "replaces": "shrewd_tpu/ops/pallas_taint.py:634",
+        "launches": launches, "max_abs_err": float(max_err),
+        "matches_plain": max_err == 0,
+        "ms": sum(k2_wave_ms), "plain_ms": sum(plain_wave_ms),
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if by_ops else "bytes",
+        "library_ms": None}
+    marks("10 chunked timings")
+    return timings, record
 
 
 def main() -> int:
@@ -181,6 +577,13 @@ def main() -> int:
     from shrewd_tpu_torch.ops.trial import TrialKernel
     from shrewd_tpu_torch.utils import prng
 
+    t_mark = [time.monotonic()]
+
+    def marks(phase: str) -> None:
+        now = time.monotonic()
+        log(f"phase {phase}: {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
     # 1. environment
     nvcc_v = subprocess.run([taint_cuda.nvcc(), "--version"],
                             capture_output=True, text=True,
@@ -197,8 +600,9 @@ def main() -> int:
     t_kernel = time.monotonic() - t0
     t0 = time.monotonic()
     native.build()
-    log(f"build: taint_fast.cu {t_kernel:.1f} s, csrc oracle "
-        f"{time.monotonic() - t0:.1f} s")
+    log(f"build: taint_fast.cu {t_kernel:.1f} s, csrc oracle and chunk "
+        f"recorder {time.monotonic() - t0:.1f} s")
+    marks("1-2 environment + build")
 
     # 3. the flagship window
     trace = native.generate_trace(seed=1, n=4096, nphys=256, mem_words=4096,
@@ -211,6 +615,7 @@ def main() -> int:
         f"{trace.mem_words}: golden record {time.monotonic() - t0:.1f} s, "
         f"mem_t {'on' if gold.mem_t is not None else 'off'}")
     keys = prng.trial_keys(prng.campaign_key(0), N_KEYS)
+    marks("3 window")
 
     # 4. kernel vs its plain version on the card
     cfg = kernel.cfg
@@ -253,6 +658,7 @@ def main() -> int:
             fail("the mixed-kind batch detected no fault")
         if label.startswith("(c)") and n_ovf == 0:
             fail("the K=4 batch overflowed no set")
+    marks("4 K1 vs plain")
 
     # 5. the main path, counted
     taint_cuda.taint_fast_cuda.launches = 0
@@ -284,6 +690,7 @@ def main() -> int:
             fail(f"{name}: {bad}/{N_ORACLE} outcomes differ from the C++ "
                  f"oracle")
     log(f"{N_ORACLE} outcomes: hybrid and dense equal the C++ oracle")
+    marks("5 main path")
 
     # 6. timings
     args, kw, got = flagship
@@ -324,6 +731,9 @@ def main() -> int:
         "run_keys_ms": e2e_ms, "trials_per_s": N_KEYS / (e2e_ms / 1e3),
         "live_lane_steps": live_steps, "bytes": bytes_moved, "ops": ops}
     log(json.dumps({"timings": timings}))
+    marks("6 timings")
+    chunk_timings, k2_record = chunked_phases(torch, dev, marks)
+    log(json.dumps({"timings": {"card": card, **chunk_timings}}))
     record = {"kernels": [{
         "name": "taint_fast", "route": "cuda",
         "source": "shrewd_tpu_torch/csrc/taint_fast.cu",
@@ -333,7 +743,7 @@ def main() -> int:
         "ms": k1_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None}]}
+        "library_ms": None}, k2_record]}
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

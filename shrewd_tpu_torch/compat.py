@@ -4,7 +4,9 @@ The system has no weights; what the JAX package and the port must share is
 the input of a run: a trace window, a machine config, the per-trial PRNG
 keys and fault coordinates.  Each function here takes them as the reference
 hands them out, as numpy arrays (``np.asarray`` of jax arrays) or plain
-dicts, and builds the port's object.  Nothing here imports the reference.
+dicts, and builds the port's object; the chunked path's window and carried
+deviation sets also go back, as numpy arrays the reference takes.  Nothing
+here imports the reference.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from shrewd_tpu_torch.models.o3 import Fault, O3Config
+from shrewd_tpu_torch.ops.window import TRACE_FIELDS, PreprocessedWindow
 from shrewd_tpu_torch.trace.format import Trace
 from shrewd_tpu_torch.utils.device import resolve as resolve_device
 
@@ -56,10 +59,54 @@ def fault_from_arrays(kind, cycle, entry, bit, shadow_u,
     device = resolve_device(device)
 
     def i32(x):
-        return torch.as_tensor(np.asarray(x, dtype=np.int32).reshape(-1),
+        return torch.as_tensor(np.array(x, dtype=np.int32).reshape(-1),
                                device=device)
     return Fault(kind=i32(kind), cycle=i32(cycle), entry=i32(entry),
                  bit=i32(bit),
                  shadow_u=torch.as_tensor(
-                     np.asarray(shadow_u, dtype=np.float32).reshape(-1),
+                     np.array(shadow_u, dtype=np.float32).reshape(-1),
                      device=device))
+
+
+def window_from_arrays(n: int, S: int, tr: dict, gb_reg, gb_mem,
+                       trace_digest: str = "") -> PreprocessedWindow:
+    """A reference ``PreprocessedWindow``'s ``n``, ``S``, padded ``tr``
+    and boundary states → the port's window (host numpy, as the
+    reference keeps them)."""
+    gb_reg = np.ascontiguousarray(np.asarray(gb_reg), dtype=np.uint32)
+    gb_mem = np.ascontiguousarray(np.asarray(gb_mem), dtype=np.uint32)
+    return PreprocessedWindow(
+        n=n, S=S, nphys=gb_reg.shape[1], mem_words=gb_mem.shape[1],
+        trace_digest=trace_digest,
+        tr={f: np.asarray(tr[f]) for f in TRACE_FIELDS},
+        gb_reg=gb_reg, gb_mem=gb_mem)
+
+
+def window_to_arrays(win: PreprocessedWindow) -> tuple[dict, np.ndarray,
+                                                      np.ndarray]:
+    """The port's window → ``(tr, gb_reg, gb_mem)`` as numpy arrays with
+    the reference's dtypes (``tr`` int32 fields, ``imm`` and the states
+    uint32)."""
+    return ({f: np.asarray(win.tr[f]) for f in TRACE_FIELDS},
+            np.asarray(win.gb_reg, np.uint32),
+            np.asarray(win.gb_mem, np.uint32))
+
+
+def sets_from_arrays(tags, vals, device=None) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """Carried deviation sets in the reference's per-lane layout (``(B,
+    k)`` int32 tags, uint32 values) → the port's ``(B, k)`` int64 pair, on
+    ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
+    return (torch.as_tensor(np.asarray(tags).astype(np.int64),
+                            device=device),
+            torch.as_tensor(np.asarray(vals).astype(np.uint32)
+                            .astype(np.int64), device=device))
+
+
+def sets_to_arrays(tags: torch.Tensor, vals: torch.Tensor
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """The port's carried sets → the reference's ``(B, k)`` int32 tags and
+    uint32 values."""
+    return (tags.cpu().numpy().astype(np.int32),
+            vals.cpu().numpy().astype(np.uint32))

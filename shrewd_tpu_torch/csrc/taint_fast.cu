@@ -1,10 +1,21 @@
-// Deviation-set fast pass on Hopper: one thread per trial lane.
+// Deviation-set fast pass on Hopper: one thread per trial lane.  Two
+// entry points share one kernel body (taint_fast_kernel):
 //
-// Replaces shrewd_tpu/ops/pallas_taint.py:513 taint_fast_pallas (its body
-// _make_kernel(carry_sets=False), :209-504, and the end classification,
-// :603-626).  Same per-step semantics as the plain PyTorch version,
-// shrewd_tpu_torch/ops/taint.py taint_fast_plain, which the wrapper
-// (shrewd_tpu_torch/ops/taint_cuda.py) uses for CPU tensors.
+// - taint_fast_launch (K1) replaces shrewd_tpu/ops/pallas_taint.py:513
+//   taint_fast_pallas (its body _make_kernel(carry_sets=False), :209-504,
+//   and the end classification, :603-626).  Plain PyTorch version:
+//   shrewd_tpu_torch/ops/taint.py taint_fast_plain.
+// - taint_chunk_launch (K2, CARRY_SETS = true) replaces
+//   shrewd_tpu/ops/pallas_taint.py:634 taint_chunk_pallas
+//   (_make_kernel(carry_sets=True)): one chunk of the window, the sets
+//   seeded from the carried (tags0, vals0) instead of EMPTY, no end
+//   classification; it writes the det/trap/div bits, esc, ovf, the sets
+//   and the live-step counts.  Plain PyTorch version: ops/taint.py
+//   taint_chunk.  The chunked driver (ops/chunked.py) launches it once per
+//   wave of a chunk, at B <= 4096 lanes and S = 65536 steps.
+//
+// The wrappers (shrewd_tpu_torch/ops/taint_cuda.py) use the plain versions
+// for CPU tensors.
 //
 // What bounds it on an H100: not bytes.  At the flagship shape (n = 4096
 // steps, B = 131072 lanes, K = 16) it reads a 16 x n golden stream (256 KiB)
@@ -21,7 +32,13 @@
 //   - a dead lane (detected, trapped, diverged, escaped or overflowed) is
 //     frozen, so it stops doing work;
 //   - the loop over all n steps runs inside the thread: it replaces the
-//     TPU grid's sequential step axis, and needs no carry between blocks.
+//     TPU grid's sequential step axis, and needs no carry between blocks;
+//   - the block size follows B (launch()): a chunk wave of a few hundred
+//     lanes runs as one-warp blocks, so its warps spread over the SMs
+//     instead of sharing a few.
+// K2 is the same body over one chunk, so the same per-step work bounds it;
+// at a chunk wave (B = 512, S = 65536) each thread walks 65536 dependent
+// steps, so one warp's latency, not the card's issue rate, sets its time.
 // The TPU kernel's restoring divider, (1, B) layout, S_CHUNK blocks and
 // unrolled step groups were Mosaic constraints; here division is native,
 // the ALU is a per-lane switch (warp-uniform unless a LATCH_OP fault
@@ -132,6 +149,18 @@ struct DevSet {
     for (int s = 0; s < K; ++s) { tag[s] = EMPTY; val[s] = 0u; }
   }
 
+  // a carried set, [K, B] layout; it may hold EMPTY slots between live
+  // ones, which upsert fills lowest first, as the reference does
+  __device__ __forceinline__ void load(const int32_t* tags,
+                                       const int32_t* vals, int lane,
+                                       int B) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      tag[s] = tags[s * B + lane];
+      val[s] = static_cast<uint32_t>(vals[s * B + lane]);
+    }
+  }
+
   // (found, value); tags are unique, so the sum is the matching value
   __device__ __forceinline__ bool lookup(int t, uint32_t& v) const {
     bool found = false;
@@ -146,8 +175,9 @@ struct DevSet {
     return found;
   }
 
-  // update the first matching slot, else fill the first empty one;
-  // returns true (overflow) when neither exists
+  // update the lowest matching slot, else fill the lowest empty one (the
+  // reference's min(where(hit/empty, iota, K))); returns true (overflow)
+  // when neither exists
   __device__ __forceinline__ bool upsert(int t, uint32_t v) {
     int hit = K, emp = K;
 #pragma unroll
@@ -184,7 +214,11 @@ struct Params {
   const int32_t* alt1;
   const int32_t* alt2;
   const int32_t* final_state; // [nphys + mem_words] golden final reg|mem
-  int32_t* outcome;           // [B]
+                              // (K1 only)
+  const int32_t* tags_in;     // [K, B] carried sets (K2 only)
+  const int32_t* vals_in;     // [K, B]
+  int32_t* outcome;           // [B] K1: outcome class; K2: det | trap << 1
+                              //     | div << 2
   int32_t* escaped;           // [B]
   int32_t* overflow;          // [B]
   int32_t* steps;             // [B] steps each lane ran live
@@ -193,7 +227,7 @@ struct Params {
   int n, B, nphys, mem_words, compare_regs;
 };
 
-template <int K, bool MAY_LATCH>
+template <int K, bool MAY_LATCH, bool CARRY_SETS>
 __global__ void __launch_bounds__(THREADS) taint_fast_kernel(Params p) {
   __shared__ int32_t tile[ROWS][TILE];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -214,7 +248,8 @@ __global__ void __launch_bounds__(THREADS) taint_fast_kernel(Params p) {
   const int imask = static_cast<int>(mask);
 
   DevSet<K> set;
-  set.clear();
+  if (CARRY_SETS && active) set.load(p.tags_in, p.vals_in, lane, p.B);
+  else set.clear();
   bool live = active;
   bool det = false, trap = false, div = false, esc = false, ovf = false;
   int lived = 0;
@@ -353,17 +388,22 @@ __global__ void __launch_bounds__(THREADS) taint_fast_kernel(Params p) {
   }
 
   if (!active) return;
-  // end classification: a surviving deviation that differs from the golden
-  // final state is corruption (memory only without compare_regs)
-  bool state_diff = false;
+  if (CARRY_SETS) {
+    // a chunk: the raw flags; the driver resolves convergence and the end
+    p.outcome[lane] = (det ? 1 : 0) | (trap ? 2 : 0) | (div ? 4 : 0);
+  } else {
+    // end classification: a surviving deviation that differs from the
+    // golden final state is corruption (memory only without compare_regs)
+    bool state_diff = false;
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    const int t = set.tag[s];
-    if (t != EMPTY && (p.compare_regs || t >= p.nphys))
-      state_diff |= set.val[s] != static_cast<uint32_t>(p.final_state[t]);
+    for (int s = 0; s < K; ++s) {
+      const int t = set.tag[s];
+      if (t != EMPTY && (p.compare_regs || t >= p.nphys))
+        state_diff |= set.val[s] != static_cast<uint32_t>(p.final_state[t]);
+    }
+    p.outcome[lane] = det ? DETECTED : trap ? DUE
+                      : (div || state_diff) ? SDC : MASKED;
   }
-  p.outcome[lane] = det ? DETECTED : trap ? DUE : (div || state_diff) ? SDC
-                                                                      : MASKED;
   p.escaped[lane] = esc;
   p.overflow[lane] = ovf;
   p.steps[lane] = lived;
@@ -374,14 +414,39 @@ __global__ void __launch_bounds__(THREADS) taint_fast_kernel(Params p) {
   }
 }
 
-template <int K>
+// Threads per block: whole warps, as few as keep every SM busy — one warp
+// per block until B exceeds a warp per SM, up to THREADS.  A lane's time is
+// its serial walk over the steps, so a small batch gains from spreading
+// its warps over the SMs, a large one from filling each SM.
+int block_threads(int B) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int per_sm = (B + sms - 1) / sms;
+  const int warps = (per_sm + 31) / 32;
+  return 32 * (warps < 1 ? 1 : warps > THREADS / 32 ? THREADS / 32 : warps);
+}
+
+template <int K, bool CARRY_SETS>
 cudaError_t launch(const Params& p, bool may_latch, cudaStream_t stream) {
-  const dim3 grid((p.B + THREADS - 1) / THREADS), block(THREADS);
+  const int threads = block_threads(p.B);
+  const dim3 grid((p.B + threads - 1) / threads), block(threads);
   if (may_latch)
-    taint_fast_kernel<K, true><<<grid, block, 0, stream>>>(p);
+    taint_fast_kernel<K, true, CARRY_SETS><<<grid, block, 0, stream>>>(p);
   else
-    taint_fast_kernel<K, false><<<grid, block, 0, stream>>>(p);
+    taint_fast_kernel<K, false, CARRY_SETS><<<grid, block, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool CARRY_SETS>
+int launch_k(const Params& p, int k, int may_latch, void* cuda_stream) {
+  if (p.B <= 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  switch (k) {
+    case 16: return static_cast<int>(launch<16, CARRY_SETS>(p, may_latch, s));
+    case 4:  return static_cast<int>(launch<4, CARRY_SETS>(p, may_latch, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -395,13 +460,23 @@ extern "C" int taint_fast_launch(
     int n, int B, int nphys, int mem_words, int k, int compare_regs,
     int may_latch, void* cuda_stream) {
   const Params p{stream, kind, cycle, entry, bit, shadow_u, gaf, alt1, alt2,
-                 final_state, outcome, escaped, overflow, steps, tags_out,
-                 vals_out, n, B, nphys, mem_words, compare_regs};
-  if (B <= 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  switch (k) {
-    case 16: return static_cast<int>(launch<16>(p, may_latch != 0, s));
-    case 4:  return static_cast<int>(launch<4>(p, may_latch != 0, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                 final_state, nullptr, nullptr, outcome, escaped, overflow,
+                 steps, tags_out, vals_out, n, B, nphys, mem_words,
+                 compare_regs};
+  return launch_k<false>(p, k, may_latch, cuda_stream);
+}
+
+// K2: one chunk from carried sets; bits = det | trap << 1 | div << 2
+extern "C" int taint_chunk_launch(
+    const int32_t* stream, const int32_t* kind, const int32_t* cycle,
+    const int32_t* entry, const int32_t* bit, const float* shadow_u,
+    const int32_t* gaf, const int32_t* alt1, const int32_t* alt2,
+    const int32_t* tags_in, const int32_t* vals_in, int32_t* bits,
+    int32_t* escaped, int32_t* overflow, int32_t* steps, int32_t* tags_out,
+    int32_t* vals_out, int n, int B, int nphys, int mem_words, int k,
+    int may_latch, void* cuda_stream) {
+  const Params p{stream, kind, cycle, entry, bit, shadow_u, gaf, alt1, alt2,
+                 nullptr, tags_in, vals_in, bits, escaped, overflow, steps,
+                 tags_out, vals_out, n, B, nphys, mem_words, 1};
+  return launch_k<true>(p, k, may_latch, cuda_stream);
 }

@@ -1,10 +1,14 @@
 """ctypes bindings to the serial C++ runtime in ``csrc/``.
 
 The port's own binding, counterpart of ``shrewd_tpu/native/__init__.py``
-(same structs, same three entry points).  It only reads ``csrc/``: the two
-sources are compiled with g++ into ``shrewd_tpu_torch/_build/``, under a
-name keyed by their content, so an edit to ``csrc/`` rebuilds and parallel
-test workers never load a half-written library.
+(same structs, same three entry points), plus two of its own for chunked
+replay (``ops/chunked.py``): the golden boundary pass over a chunked
+window and the per-chunk golden recorder (``csrc/golden_chunk.cc``, the
+port's source; it includes ``csrc/shrewd.h`` for the oracle's ALU).  It
+only reads ``csrc/``: the sources are compiled with g++ into
+``shrewd_tpu_torch/_build/``, under a name keyed by their content, so an
+edit to either rebuilds and parallel test workers never load a
+half-written library.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -24,6 +29,7 @@ _CSRC = _PKG.parent / "csrc"
 _BUILD = _PKG / "_build"
 _SOURCES = ("golden.cc", "trace_engine.cc")
 _HEADERS = ("shrewd.h",)
+_PORT_SOURCES = (_PKG / "csrc" / "golden_chunk.cc",)
 _CXXFLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 _lib = None
 
@@ -74,15 +80,17 @@ def build() -> Path:
     """Compile ``csrc/`` into ``_build/libshrewd_<digest>.so`` unless that
     exact build exists; returns its path."""
     h = hashlib.sha256(" ".join(_CXXFLAGS).encode())
-    for name in _SOURCES + _HEADERS:
-        h.update((_CSRC / name).read_bytes())
+    for path in [_CSRC / name for name in _SOURCES + _HEADERS] + \
+            list(_PORT_SOURCES):
+        h.update(path.read_bytes())
     out = _BUILD / f"libshrewd_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     _BUILD.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *_CXXFLAGS, "-o", str(tmp),
-           *[str(_CSRC / s) for s in _SOURCES]]
+    cmd = ["g++", *_CXXFLAGS, f"-I{_CSRC}", "-o", str(tmp),
+           *[str(_CSRC / s) for s in _SOURCES],
+           *[str(p) for p in _PORT_SOURCES]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"native build failed ({' '.join(cmd)}):\n"
@@ -108,6 +116,10 @@ def lib() -> ct.CDLL:
             ct.POINTER(_WorkloadParams)] + [ct.POINTER(ct.c_int32)] * 4 + [
             ct.POINTER(ct.c_uint32), ct.POINTER(ct.c_int32),
             ct.POINTER(ct.c_uint32), ct.POINTER(ct.c_uint32)]
+        so.shrewd_record_chunk.restype = None
+        so.shrewd_record_chunk.argtypes = [ct.POINTER(_TraceView)] + \
+            [ct.POINTER(ct.c_uint32)] * 2 + [ct.POINTER(ct.c_uint8),
+                                             ct.POINTER(ct.c_uint32)]
         _lib = so
     return _lib
 
@@ -150,6 +162,50 @@ def golden_replay(trace: Trace) -> tuple[np.ndarray, np.ndarray]:
     lib().shrewd_golden_replay(ct.byref(tv), _u32p(init_reg), _u32p(init_mem),
                                _u32p(out_reg), _u32p(out_mem))
     return out_reg, out_mem
+
+
+def chunk_view(tr: dict, lo: int, hi: int, init_reg,
+               init_mem) -> SimpleNamespace:
+    """A trace-shaped view of µops ``[lo, hi)`` of the host arrays ``tr``
+    (``ops/window.py TRACE_FIELDS``) that starts from its own state, for
+    ``golden_replay`` and ``record_chunk``."""
+    view = SimpleNamespace(**{f: v[lo:hi] for f, v in tr.items()})
+    view.init_reg = init_reg
+    view.init_mem = init_mem
+    view.n = hi - lo
+    view.nphys = int(np.shape(init_reg)[0])
+    view.mem_words = int(np.shape(init_mem)[0])
+    return view
+
+
+def boundary_pass(tr: dict, S: int, gb_reg: np.ndarray,
+                  gb_mem: np.ndarray) -> None:
+    """The golden boundary states of a chunked window, in place: row
+    ``c + 1`` of ``gb_reg``/``gb_mem`` is the fault-free state after chunk
+    ``c``, replayed from row ``c`` (port of the native pass,
+    ``shrewd_tpu/ops/chunked.py:140-167``).  Row 0 is the caller's."""
+    for c in range(gb_reg.shape[0] - 1):
+        view = chunk_view(tr, c * S, (c + 1) * S, gb_reg[c], gb_mem[c])
+        gb_reg[c + 1], gb_mem[c + 1] = golden_replay(view)
+
+
+def record_chunk(view, wr) -> np.ndarray:
+    """One serial fault-free pass over a chunk view → its golden streams
+    uint32[6, n]: a, b, ea, res, st_old, dst_old.  ``wr`` (bool[n]) marks
+    the steps that write their destination register."""
+    keep: list = []
+    tv = _trace_view(view, keep)
+    init_reg = _ascontig(view.init_reg, np.uint32)
+    init_mem = _ascontig(view.init_mem, np.uint32)
+    wr = _ascontig(wr, np.uint8)
+    if wr.shape != (view.n,):
+        raise ValueError(f"wr of shape {wr.shape}, expected ({view.n},)")
+    streams = np.empty((6, view.n), dtype=np.uint32)
+    lib().shrewd_record_chunk(ct.byref(tv), _u32p(init_reg),
+                              _u32p(init_mem),
+                              wr.ctypes.data_as(ct.POINTER(ct.c_uint8)),
+                              _u32p(streams))
+    return streams
 
 
 def golden_trials(trace: Trace, kinds, cycles, entries, bits, shadow_us,

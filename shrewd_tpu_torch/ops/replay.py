@@ -282,13 +282,16 @@ def lane_op(op0: int, latch_flip):
 
 class FaultPlan:
     """Per-batch fault predicates for the step loops.  ``here(kind, i)``
-    is ``(fault.kind == kind) & (i == fault.entry)`` as a bool tensor, or
-    False when no lane of that kind is struck at µop i (host sets built
-    with one device→host copy).  ``mask`` is ``1 << bit``: the reference's
+    is ``(fault.kind == kind) & (i + offset == fault.entry)`` as a bool
+    tensor, or False when no lane of that kind is struck at µop i (host
+    sets built with one device→host copy).  ``offset`` is the global index
+    of step 0 (a chunk's start, ``replay``'s ``index_offset``): the fault
+    coordinates stay global.  ``mask`` is ``1 << bit``: the reference's
     uint32 value flip mask and int32 index flip mask carry the same bits,
     so one int64 mask serves both."""
 
-    def __init__(self, faults: Fault):
+    def __init__(self, faults: Fault, offset: int = 0):
+        self.offset = int(offset)
         self.kind = faults.kind.to(torch.int64)
         self.cycle = faults.cycle.to(torch.int64)
         self.entry = faults.entry.to(torch.int64)
@@ -303,11 +306,13 @@ class FaultPlan:
                 self.uop_steps.setdefault(kd, set()).add(e)
 
     def flip(self, i: int):
+        i += self.offset
         if i not in self.flip_steps:
             return False
         return (self.kind == KIND_REGFILE) & (self.cycle == i)
 
     def here(self, kind: int, i: int):
+        i += self.offset
         if i not in self.uop_steps.get(kind, ()):
             return False
         return (self.kind == kind) & (self.entry == i)
@@ -331,21 +336,26 @@ def _read(reg, lanes, idx, idx_mask):
 
 def replay(tr: TraceArrays, init_reg: torch.Tensor, init_mem: torch.Tensor,
            faults: Fault, shadow_cov: torch.Tensor,
-           memmap=None) -> ReplayResult:
+           memmap=None, index_offset: int = 0) -> ReplayResult:
     """Propagate a batch of trials over the whole window (dense state).
 
-    ``init_reg``/``init_mem`` are the window-start state (int64 tensors of
-    uint32 values), ``shadow_cov`` the per-µop detection probability."""
+    ``init_reg``/``init_mem`` are the start state (int64 tensors of uint32
+    values): one ``(nphys,)`` / ``(mem_words,)`` state for every lane, or
+    one per lane, ``(B, nphys)`` / ``(B, mem_words)``.  ``shadow_cov`` is
+    the per-µop detection probability.  ``index_offset`` is the global
+    index of ``tr``'s first µop: the chunked path (``ops/chunked.py``)
+    passes a chunk's start, so the faults' global coordinates land inside
+    the chunk."""
     if memmap is not None:
         raise NotImplementedError(
             "the VA-space memmap trap model comes with a later slice of "
             "the PyTorch port")
     dev = init_reg.device
-    nphys = init_reg.shape[0]
-    mem_words = init_mem.shape[0]
+    nphys = init_reg.shape[-1]
+    mem_words = init_mem.shape[-1]
     idx_mask = nphys - 1
     B = faults.kind.shape[0]
-    fp = FaultPlan(faults)
+    fp = FaultPlan(faults, index_offset)
     lanes = torch.arange(B, device=dev)
     reg = init_reg.to(torch.int64).expand(B, nphys).clone()
     mem = init_mem.to(torch.int64).expand(B, mem_words).clone()

@@ -9,11 +9,17 @@ word w, EMPTY = −1 — and each step reads the golden run's per-step values
 
 - ``record_golden`` records those golden streams (and, within the
   ``taint_*_timeline_mb`` budgets, the register/memory timelines);
+  ``record_chunk`` records one chunk's streams through the serial C++
+  recorder (``native.record_chunk``), with no step loop;
 - ``fault_setup`` / ``setup_scan`` gather each lane's one-time setup values;
+  ``setup_gather`` computes ``setup_scan``'s values from a chunk's record
+  with one sort and one ``searchsorted``, with no step loop;
 - ``taint_replay`` runs the scan: without the memory timeline it is the
   **plain version of the fast-pass kernel** (``ops/taint_cuda.py``; a load
   at an address the golden run did not touch this step *escapes*), with it
-  it is the row pass that resolves those loads exactly.
+  it is the row pass that resolves those loads exactly;
+- ``taint_chunk`` is the same scan over one chunk, seeded with the carried
+  deviation sets: the **plain version of the chunk kernel**.
 
 Exactness: outcomes equal the dense scan's (``ops/replay.py``) except on
 lanes flagged escaped or overflowed, which the hybrid path
@@ -27,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from shrewd_tpu_torch import native
 from shrewd_tpu_torch.isa import uops as U
 from shrewd_tpu_torch.models.o3 import (Fault, KIND_FU, KIND_IQ_SRC1,
                                         KIND_IQ_SRC2, KIND_LATCH_IMM,
@@ -122,6 +129,35 @@ def record_golden(tr: TraceArrays, init_reg: torch.Tensor,
         final_reg=reg, final_mem=mem)
 
 
+def record_chunk(tr: TraceArrays, init_reg: torch.Tensor,
+                 init_mem: torch.Tensor, final_reg: torch.Tensor,
+                 final_mem: torch.Tensor) -> GoldenRecord:
+    """One chunk's golden streams, from the chunk's start state (port of
+    ``shrewd_tpu/ops/chunked.py:861-901 _record_chunk``).  The six value
+    streams come from one serial C++ pass on the host
+    (``native.record_chunk``, the oracle's ALU), the flags from the
+    opcode; ``final_reg``/``final_mem`` are the chunk-end boundary, kept
+    as given.  No timelines.  On the device of ``init_reg``."""
+    dev = init_reg.device
+    host = torch.stack(list(tr)).cpu().numpy()
+    view = native.chunk_view(
+        dict(zip(TraceArrays._fields, host)), 0, tr.n,
+        init_reg.cpu().numpy(), init_mem.cpu().numpy())
+    op_np = host[TraceArrays._fields.index("opcode")]
+    wr = U.writes_dest(op_np)
+    streams = native.record_chunk(view, wr)
+    st = torch.as_tensor(streams.astype("int64"), device=dev)
+
+    def flag(x):
+        return torch.as_tensor(x, dtype=torch.bool, device=dev)
+
+    return GoldenRecord(a=st[0], b=st[1], ea=st[2], res=st[3],
+                        st_old=st[4], dst_old=st[5], wr=flag(wr),
+                        is_ld=flag(U.is_load(op_np)),
+                        is_st=flag(U.is_store(op_np)), reg_t=None,
+                        mem_t=None, final_reg=final_reg, final_mem=final_mem)
+
+
 # --- deviation-set primitives on (B, k) sets (tags unique or EMPTY) -------
 
 def _col(x):
@@ -212,15 +248,56 @@ def setup_scan(tr: TraceArrays, init_reg: torch.Tensor,
     return gaf, alt1, alt2
 
 
+def setup_gather(gold: GoldenRecord, tr: TraceArrays,
+                 init_reg: torch.Tensor, faults: Fault):
+    """``setup_scan``'s three per-lane values, bit for bit, from a
+    recording without the register timeline and without a step loop.
+
+    The register r before step i is ``res[j]`` of the last step j < i
+    that wrote r, else ``init_reg[r]``.  The writes are sorted by
+    ``(register, step)`` once; one ``searchsorted`` finds j for every
+    lane.  As in ``setup_scan``, ``gold_at_fault`` is 0 on a lane whose
+    ``cycle`` is not a step of ``tr`` (a carried lane, a lane of another
+    chunk), and the alternates are read at ``clip(entry, 0, n - 1)``."""
+    nphys = init_reg.shape[0]
+    idx_mask = nphys - 1
+    n = tr.n
+    dev = init_reg.device
+    index_mask = faults.bit_as_index_mask()
+    entry = faults.entry.to(torch.int64)
+    cycle = faults.cycle.to(torch.int64)
+    e = entry.clamp(0, n - 1)
+    wj = torch.nonzero(gold.wr).flatten()
+    key, order = torch.sort(tr.dst[wj] * n + wj)
+    # a sentinel above every query keeps the gathers in range
+    key = torch.cat([key, torch.tensor([nphys * n], device=dev)])
+    wj = torch.cat([wj[order], torch.zeros(1, dtype=wj.dtype, device=dev)])
+
+    def before(r, i):
+        pos = torch.searchsorted(key, r * n + i) - 1
+        j = pos.clamp(min=0)
+        hit = (pos >= 0) & (key[j] // n == r)
+        return torch.where(hit, gold.res[wj[j]], init_reg[r])
+
+    in_tr = (cycle >= 0) & (cycle < n)
+    gaf = torch.where(in_tr, before(entry & idx_mask, cycle.clamp(0, n - 1)),
+                      0)
+    alt1 = before((tr.src1[e] ^ index_mask) & idx_mask, e)
+    alt2 = before((tr.src2[e] ^ index_mask) & idx_mask, e)
+    return gaf, alt1, alt2
+
+
 def _scan_deviation(gold: GoldenRecord, tr: TraceArrays, faults: Fault,
                     shadow_cov: torch.Tensor, k: int, setup,
-                    may_latch: bool = True):
+                    may_latch: bool = True, init_sets=None):
     """The deviation-set scan over every µop of ``tr`` for a lane batch →
     the final ``(tags, vals, steps, detected, trapped, diverged, escaped,
     overflowed)``, ``steps`` counting the steps each lane ran live.  With
     ``gold.mem_t`` a load at a non-golden address reads the timeline row;
     without it, it escapes.  ``may_latch=False`` ignores LATCH_OP faults
-    (the kernel's scalar-opcode variant)."""
+    (the kernel's scalar-opcode variant).  ``init_sets`` = ``(tags0,
+    vals0)``, each ``(B, k)``, seeds the sets (a chunk's carried state);
+    None starts them EMPTY."""
     nphys = gold.final_reg.shape[0]
     mem_words = gold.final_mem.shape[0]
     idx_mask = nphys - 1
@@ -234,8 +311,12 @@ def _scan_deviation(gold: GoldenRecord, tr: TraceArrays, faults: Fault,
     ftag = fp.entry & idx_mask
     mem_t = gold.mem_t
 
-    tags = torch.full((B, k), EMPTY, dtype=torch.int64, device=dev)
-    vals = torch.zeros((B, k), dtype=torch.int64, device=dev)
+    if init_sets is None:
+        tags = torch.full((B, k), EMPTY, dtype=torch.int64, device=dev)
+        vals = torch.zeros((B, k), dtype=torch.int64, device=dev)
+    else:
+        tags = init_sets[0].to(torch.int64).clone()
+        vals = init_sets[1].to(torch.int64) & M32
     live = torch.ones(B, dtype=torch.bool, device=dev)
     detected = torch.zeros_like(live)
     trapped = torch.zeros_like(live)
@@ -426,3 +507,23 @@ def taint_fast_plain(gold: GoldenRecord, tr: TraceArrays,
                         k=k, compare_regs=compare_regs,
                         setup=(gold_at_fault, alt1, alt2),
                         may_latch=may_latch)
+
+
+def taint_chunk(gold: GoldenRecord, tr: TraceArrays,
+                shadow_cov: torch.Tensor, faults: Fault, gold_at_fault,
+                alt1, alt2, tags0, vals0, k: int = 16,
+                may_latch: bool = True):
+    """One chunk of a lane batch via deviation tracking: the plain PyTorch
+    version of the chunk kernel (``ops/taint_cuda.py taint_chunk_cuda``,
+    same signature).  Port of ``shrewd_tpu/ops/taint.py:402-417``.
+
+    ``gold``/``tr``/``shadow_cov`` cover one chunk; the fault coordinates
+    are localized to it (a carried lane's go negative and no fault phase
+    re-fires).  ``tags0``/``vals0`` ``(B, k)`` are the sets carried in
+    (EMPTY/0 for a lane starting in its landing chunk).  Returns the raw
+    ``(tags, vals, steps, detected, trapped, diverged, escaped,
+    overflowed)``; convergence, horizon and end classification are the
+    chunked driver's (``ops/chunked.py``)."""
+    return _scan_deviation(gold._replace(mem_t=None), tr, faults,
+                           shadow_cov, k, (gold_at_fault, alt1, alt2),
+                           may_latch, init_sets=(tags0, vals0))

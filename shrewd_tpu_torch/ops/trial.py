@@ -62,6 +62,9 @@ class TrialKernel:
         self._golden: ReplayResult | None = None
         self._golden_rec = None
         self._samplers: dict = {}
+        # VA-space memory map of a lifted trace: a later slice; the chunked
+        # path (ops/chunked.py) reads it as the JAX package's does
+        self.memmap = None
         # taint observability: escape counts feed campaign stats
         self.escapes = 0
         self.taint_trials = 0

@@ -1,5 +1,6 @@
 """The port stands alone: no jax, nothing of ``shrewd_tpu``, and entry
-points that run on the card unless the caller asks for the CPU."""
+points that run on the card unless the caller asks for the CPU.  The no-jax
+subprocess drives the trial path and the chunked path on both engines."""
 
 import os
 import shutil
@@ -29,6 +30,12 @@ t = native.generate_trace(seed=1, n=64, nphys=64, mem_words=256,
 tally = TrialKernel(t, device="cpu").run_keys(
     prng.trial_keys(prng.campaign_key(0, "cpu"), 32), "regfile")
 assert int(tally.sum()) == 32, tally
+from shrewd_tpu_torch.ops.chunked import ChunkedCampaign
+keys = prng.trial_keys(prng.campaign_key(1, "cpu"), 32)
+for engine in ("taint", "exact"):
+    out = ChunkedCampaign(TrialKernel(t, device="cpu"), chunk=24,
+                          engine=engine).outcomes_from_keys(keys, "regfile")
+    assert out.shape == (32,), out
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded

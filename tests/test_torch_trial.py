@@ -187,6 +187,48 @@ def test_chip_smoke_operation_count(k):
     assert smoke.k1_operations(opcode, cycle, steps, k) == want
 
 
+@pytest.mark.parametrize("k", [4, 16])
+def test_chip_smoke_k2_operation_count(k):
+    """K2's operation count behind chip_smoke.py's bound covers only the
+    steps a chunk wave needs: a landing lane from its landing step, a lane
+    carrying a set from step 0, a null lane or an unseeded lane that does
+    not land in the chunk not at all."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(100 + k)
+    n, lanes = 40, 96
+    opcode = rng.integers(0, 32, n).astype(np.int32)
+    kind = rng.integers(0, 2, lanes)
+    cycle = np.where(kind == 1, rng.integers(-n, 2 * n, lanes), -1)
+    tags0 = np.full((lanes, k), -1, np.int64)
+    seeded = (kind == 1) & (cycle < 0) & (rng.random(lanes) < 0.5)
+    tags0[seeded, rng.integers(0, k, lanes)[seeded]] = 3
+    landing = (kind == 1) & (cycle >= 0) & (cycle < n)
+    first = np.where(landing, cycle, np.where(seeded, 0, n))
+    steps = np.where(landing, rng.integers(np.clip(cycle + 1, 1, n), n + 1),
+                     n)
+    faults = compat.fault_from_arrays(
+        kind, cycle, np.zeros(lanes, np.int64), np.zeros(lanes, np.int64),
+        np.ones(lanes, np.float32), "cpu")
+    lookup, remove, upsert = 4 * k, 2 * k, 7 * k + 3
+    want = want_steps = 0
+    for s, c, f, lands in zip(steps, cycle, first, landing):
+        for i in range(f, s):
+            op = opcode[i]
+            want += smoke.OPS_STEP + 2 * lookup
+            if op == uops.LOAD:
+                want += smoke.OPS_LOAD + lookup
+            if i < s - 1 and op == uops.STORE:
+                want += smoke.OPS_STORE + remove
+            if i < s - 1 and uops.writes_dest(op):
+                want += smoke.OPS_WRITE + remove
+        want_steps += max(s - f, 0)
+        if lands:
+            want += smoke.OPS_LANDING + lookup + upsert
+    assert landing.any() and seeded.any() and (kind == 0).any()
+    assert smoke.k2_operations(opcode, faults, torch.as_tensor(tags0), steps,
+                               k) == (want, want_steps)
+
+
 def test_pin_for_chip_smoke():
     """chip_smoke.py holds the port's tally of the first 4096 flagship keys
     against a constant: it must be the reference's tally."""
