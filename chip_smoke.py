@@ -19,13 +19,18 @@ JAX.  Phases, each fatal:
    ``trial_keys(campaign_key(0), 131072)``, (b) 16384 lanes of every fault
    kind with ``may_latch`` at a shadow coverage of 0.5, so that some are
    detected, (c) the same lanes through the K=4 build, where some sets
-   overflow;
+   overflow, (d) the lanes of (a) on the flagship window with one loud
+   step (its middle branch's outcome inverted before recording), where
+   some lanes stop;
 5. the main path, ``run_keys(trial_keys(campaign_key(0), 131072),
    "regfile")``, with the kernel's launch count zeroed just before it: the
    tally sums to the batch, the first 4096 keys give the JAX reference's
    pinned tally, and 2048 outcomes equal the serial C++ oracle's;
-6. timings with CUDA events (median of 5 after a warm-up) beside the card's
-   name and power limit;
+6. timings with CUDA events (median of 5 after a warm-up; K1's plain
+   version, a host loop of seconds, once after it) beside the card's
+   name and power limit; K1's bound two ways (the full body on every
+   step from each landing, and the function's own need from the
+   kernel's hit counts: the kernels line's) and its longest walk;
 7. the chunked window — ``generate_trace(seed=16, n=131072, nphys=256,
    mem_words=4096, working_set_words=1024)`` as a ``TrialKernel`` on the
    card — preprocessed at S = 65536 (C = 2); its last boundary equals the
@@ -36,7 +41,8 @@ JAX.  Phases, each fatal:
    coverage of 0.5, a third of them carried in with seeded sets and
    negative coordinates, on the NOP-padded last chunk of S = 15000 (C =
    9), so that some are detected; (c) the same through the K = 4 build,
-   where some sets overflow;
+   where some sets overflow; (d) the lanes of (b) on that chunk with one
+   loud step, where some lanes stop;
 9. the chunked main path, ``ChunkedCampaign(kernel, chunk=65536)
    .outcomes_from_keys(...512 keys..., "regfile")``, with K2's launch
    count zeroed just before it: one K2 launch per fast wave, no call of the
@@ -51,8 +57,9 @@ JAX.  Phases, each fatal:
 10. the chunked path's timings (median of 3 after a warm-up): trials/s of
     ``outcomes_from_keys``, K2 on each of the main path's waves and its
     plain version (timed once, in (a)), the chunk record, the setup
-    gathers, the exact fallback and the preprocessing; K2's bound over the
-    steps those waves need.
+    gathers, the exact fallback and the preprocessing; K2's bound over
+    those waves (the function's own need, and the full body from each
+    landing) and each wave's longest walk with its ns per step.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (K1 ``taint_fast`` and K2 ``taint_chunk``); the last line is
@@ -103,6 +110,19 @@ OPS_LOAD = 11           # + a lookup: golden_here, the value, the escape
 OPS_STORE = 3           # + a remove: the store's own tests
 OPS_WRITE = 4           # + a remove: the writeback's own tests
 OPS_LANDING = 3         # + a lookup and an upsert: the REGFILE flip
+# The function's own need (need_operations): a full step also rebuilds
+# the set's membership filter, OPS_FILTER per slot (compare, hash
+# multiply, shift, or).  A step that touches no tag of the lane's set
+# changes nothing and needs no operation: the bound charges it none.  The
+# kernel still walks it, at OPS_UNTOUCHED each — the warp's step (select,
+# min-reduction, end test) 3, the tile test 3, lane and liveness tests 2,
+# the record's address and two shared loads 4, landing and loud tests 5,
+# the probe's two words 3, the filter test 4, the hit and miss counts 2,
+# the full test 1, the next step 3 — a cost of this design, reported
+# beside the bound ("untouched_ops"), which a per-tag next-touch index
+# would remove.
+OPS_FILTER = 4
+OPS_UNTOUCHED = 30
 
 # the chunked path (phases 7-10): bench.py:505-510's window and chunk
 CHUNK_WINDOW = dict(seed=16, n=131072, nphys=256, mem_words=4096,
@@ -185,6 +205,18 @@ def mixed_faults(torch, trace, n_lanes: int, seed: int, device):
     bit = rng.integers(0, 32, n_lanes)
     shadow_u = rng.random(n_lanes, dtype=np.float32)
     return fault_from_arrays(kind, cycle, entry, bit, shadow_u, device)
+
+
+def loud_branch(taken: np.ndarray, opcode: np.ndarray) -> tuple:
+    """``taken`` with its middle branch's outcome inverted → (taken,
+    that branch's step): recorded so, the window has one loud step, where
+    every lane that reaches it with an empty set diverges."""
+    from shrewd_tpu_torch.isa import uops as U
+    br = np.nonzero(U.is_branch(opcode))[0]
+    j = int(br[len(br) // 2])
+    out = taken.copy()
+    out[j] ^= 1
+    return out, j
 
 
 def k1_operations(opcode: np.ndarray, cycle: np.ndarray,
@@ -277,6 +309,39 @@ def k2_operations(opcode: np.ndarray, faults, tags0, steps: np.ndarray,
     return ops, int(np.maximum(steps.astype(np.int64) - first, 0).sum())
 
 
+def need_operations(opcode: np.ndarray, loud: np.ndarray, land: np.ndarray,
+                    steps: np.ndarray, counts: np.ndarray,
+                    k: int) -> tuple[int, int, int]:
+    """The operations the function needs on a batch, from this run's
+    data: per lane, the full step body (as ``k1_operations`` counts a live
+    step, plus the filter rebuild) on its landing step ``land`` (with the
+    REGFILE flip; -1: none) and on every loud step it reaches; the
+    cheapest full body on each quiet step whose tags truly hit its set
+    (``counts[0]``, the kernel's counter).  A quiet step over an empty
+    set, or one whose tags miss the set (``counts[1]``), changes nothing
+    and needs nothing.  Lane l reaches steps ``< steps[l]`` →
+    (operations, full steps, untouched steps the kernel walked)."""
+    from shrewd_tpu_torch.isa import uops as U
+    lookup, upsert = 4 * k, 7 * k + 3
+    body = OPS_STEP + 2 * lookup + OPS_FILTER * k
+    full = body + U.is_load(opcode).astype(np.int64) * (OPS_LOAD + lookup)
+    last = steps.astype(np.int64) - 1
+    land = land.astype(np.int64)
+    loud_at = np.nonzero(loud)[0]
+    reached = np.searchsorted(loud_at, last, side="right")
+    before = np.concatenate([[0], np.cumsum(full[loud_at])])
+    landed = (land >= 0) & (land <= last)
+    lands = land[landed]
+    hits, misses = (c.astype(np.int64) for c in counts)
+    ops = (int(before[reached].sum())
+           + int(full[lands][~loud[lands]].sum())
+           + int(landed.sum()) * (OPS_LANDING + lookup + upsert)
+           + int(hits.sum()) * body)
+    n_full = (int(reached.sum()) + int((~loud[lands]).sum())
+              + int(hits.sum()))
+    return ops, n_full, int(misses.sum())
+
+
 def compare_chunk(torch, got, ref, what: str) -> int:
     """Hold K2's result tuple against the plain version's, bitwise;
     returns the largest absolute difference (0)."""
@@ -306,7 +371,8 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
     from shrewd_tpu_torch.ops import window as W
     from shrewd_tpu_torch.ops.chunked import (ChunkedCampaign,
                                               preprocess_window)
-    from shrewd_tpu_torch.ops.taint import setup_gather, taint_chunk
+    from shrewd_tpu_torch.ops.taint import (record_chunk, setup_gather,
+                                            taint_chunk)
     from shrewd_tpu_torch.ops.taint_cuda import taint_chunk_cuda
     from shrewd_tpu_torch.ops.trial import TrialKernel
     from shrewd_tpu_torch.utils import prng
@@ -373,6 +439,33 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
             fail("the mixed-kind chunk batch detected no fault")
         if kk == 4 and n_ovf == 0:
             fail("the K=4 chunk batch overflowed no set")
+    # (d) the same chunk and lanes with one loud step: its middle branch's
+    # outcome inverted before recording
+    taken_d, j_d = loud_branch(tr_s.taken.cpu().numpy(),
+                               tr_s.opcode.cpu().numpy())
+    tr_d = tr_s._replace(taken=torch.as_tensor(taken_d, device=dev))
+    gold_d = record_chunk(tr_d, reg0_s, torch.as_tensor(
+        small.gb_mem[last].astype(np.int64), device=dev), gold_s.final_reg,
+        gold_s.final_mem)
+    loud_d = torch.nonzero(~taint_cuda.quiet_steps(gold_d, tr_d)
+                           ).flatten().tolist()
+    if loud_d != [j_d]:
+        fail(f"K2 (d): loud steps {loud_d[:8]}, expected [{j_d}]")
+    tags0, vals0 = seeded_sets(carried, k, trace.nphys, trace.mem_words, 23)
+    args = (gold_d, tr_d, cov_s, mixed,
+            *setup_gather(gold_d, tr_d, reg0_s, mixed),
+            torch.as_tensor(tags0, device=dev),
+            torch.as_tensor(vals0, device=dev))
+    t0 = time.monotonic()
+    got = taint_chunk_cuda(*args, k=k, may_latch=True)
+    torch.cuda.synchronize()
+    ref = taint_chunk(*args, k=k, may_latch=True)
+    max_err = max(max_err, compare_chunk(torch, got, ref, "(d) loud step"))
+    n_stop = int((got[2] == j_d + 1).sum())
+    log(f"K2 vs plain (d) loud step {j_d}: {N_CHUNK_MIXED} lanes equal, "
+        f"{n_stop} stopped there ({time.monotonic() - t0:.1f} s)")
+    if n_stop == 0:
+        fail("K2 (d): no lane stopped at the loud step")
     marks("8 K2 vs plain")
 
     # 9. the chunked main path, counted; each K2 launch's inputs and result
@@ -396,6 +489,11 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
         return taint_chunk(*a, **kw)
 
     main_waves: list = []
+
+    def plain_kw(kw):
+        """A K2 call's keywords as its plain version takes them (no
+        packed stream)."""
+        return {x: v for x, v in kw.items() if x != "stream"}
 
     def kept_launch(*a, **kw):
         got = taint_chunk_cuda(*a, **kw)
@@ -429,7 +527,7 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        ref = taint_chunk(*a, **kw)
+        ref = taint_chunk(*a, **plain_kw(kw))
         end.record()
         end.synchronize()
         plain_wave_ms.append(start.elapsed_time(end))
@@ -512,25 +610,51 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
         fail("the timed main path called the plain chunk scan")
     taint_cuda.taint_chunk = taint_chunk
 
-    # K2's bound over the main path's waves: the same step body as K1, so
-    # K1's per-step counts, over the steps the chunk function needs (from a
-    # lane's landing, or from step 0 for a lane carrying a set in; a null
-    # lane or one landing in a later chunk needs none); bytes with the
-    # seeds in and the sets out
-    bound = {"ops": [], "needed_lane_steps": [], "live_lane_steps": [],
-             "bytes": [], "ops_ms": [], "bytes_ms": []}
-    for a, kw, got in main_waves:
+    # K2's bound over the main path's waves, counted as K1's: the
+    # function's own need (need_operations, from the kernel's hit counts;
+    # the kernels line's), and the full body over the steps the chunk
+    # function needs (k2_operations: from a lane's landing, or step 0 for
+    # a lane carrying a set in); bytes with the seeds in and the sets out
+    bound = {"ops": [], "full_lane_steps": [], "untouched_lane_steps": [],
+             "untouched_ops": [], "ops_from_landing": [],
+             "needed_lane_steps": [], "bytes": [], "ops_ms": [],
+             "bytes_ms": [], "from_landing_ms": [], "longest_walk": [],
+             "ns_per_step": []}
+    for w, ((a, kw, got), ms) in enumerate(zip(main_waves, k2_wave_ms)):
         B = a[3].kind.shape[0]
-        ops, needed = k2_operations(a[1].opcode.cpu().numpy(), a[3], a[7],
-                                    got[2].cpu().numpy(), k)
+        opcode = a[1].opcode.cpu().numpy()
+        steps = got[2].cpu().numpy()
+        ops_landing, needed = k2_operations(opcode, a[3], a[7], steps, k)
+        counts = torch.zeros((2, B), dtype=torch.int32, device=dev)
+        taint_chunk_cuda(*a, **kw, counts=counts)
+        loud = (~taint_cuda.quiet_steps(a[0], a[1])).cpu().numpy()
+        landing = wave_lanes(a[3], a[7], CHUNK)[0]
+        land = np.where(landing, a[3].cycle.cpu().numpy(), -1)
+        ops, full_steps, untouched = need_operations(
+            opcode, loud, land, steps, counts.cpu().numpy(), k)
+        walk = int((got[2].to(torch.int64) - taint_cuda.lane_starts(
+            a[3], CHUNK, a[7])).max())
         bytes_moved = (16 * CHUNK * 4 + B * 8 * 4 + 2 * k * B * 4
                        + B * 4 * 4 + 2 * k * B * 4)
-        bound["ops"].append(ops)
-        bound["needed_lane_steps"].append(needed)
-        bound["live_lane_steps"].append(int(got[2].sum()))
-        bound["bytes"].append(bytes_moved)
-        bound["ops_ms"].append(ops / H100_INT32_OPS_PER_S * 1e3)
-        bound["bytes_ms"].append(bytes_moved / H100_BYTES_PER_S * 1e3)
+        for key, v in (("ops", ops), ("full_lane_steps", full_steps),
+                       ("untouched_lane_steps", untouched),
+                       ("untouched_ops", untouched * OPS_UNTOUCHED),
+                       ("ops_from_landing", ops_landing),
+                       ("needed_lane_steps", needed),
+                       ("bytes", bytes_moved),
+                       ("ops_ms", ops / H100_INT32_OPS_PER_S * 1e3),
+                       ("bytes_ms", bytes_moved / H100_BYTES_PER_S * 1e3),
+                       ("from_landing_ms",
+                        ops_landing / H100_INT32_OPS_PER_S * 1e3),
+                       ("longest_walk", walk),
+                       ("ns_per_step", ms * 1e6 / max(walk, 1))):
+            bound[key].append(v)
+        log(f"K2 wave {w}: {ms:.3f} ms, longest walk {walk} steps, "
+            f"{ms * 1e6 / max(walk, 1):.1f} ns per step on it; bound "
+            f"{max(bound['ops_ms'][-1], bound['bytes_ms'][-1]):.4f} ms "
+            f"({full_steps} full lane-steps; {untouched} untouched "
+            f"lane-steps walked), {bound['from_landing_ms'][-1]:.4f} ms "
+            f"counting the full body from each landing")
     bound_ms = sum(max(o, b) for o, b in zip(bound["ops_ms"],
                                              bound["bytes_ms"]))
     by_ops = sum(bound["ops_ms"]) >= sum(bound["bytes_ms"])
@@ -627,11 +751,11 @@ def main() -> int:
         O3Config(shadow_coverage=[MIXED_COVERAGE] * U.N_OPCLASSES))[0],
         device=dev)
 
-    def both(faults, k, may_latch, shadow_cov):
-        setup = kernel._setup_batch(faults)
-        args = (gold, kernel.tr, shadow_cov, faults, *setup)
+    def both(kern, faults, k, may_latch, shadow_cov, stream=None):
+        setup = kern._setup_batch(faults)
+        args = (kern.golden_rec, kern.tr, shadow_cov, faults, *setup)
         kw = dict(k=k, compare_regs=cfg.compare_regs, may_latch=may_latch)
-        got = taint_fast_cuda(*args, **kw)
+        got = taint_fast_cuda(*args, **kw, stream=stream)
         torch.cuda.synchronize()
         return got, taint_fast_plain(*args, **kw), args, kw
 
@@ -639,13 +763,15 @@ def main() -> int:
     mixed = mixed_faults(torch, trace, N_MIXED, 7, dev)
     max_err = 0
     flagship = None
-    for label, faults, k, ml, cov in (
+    # (a) reads the kernel's packed record, as the main path does; (b) and
+    # (c), at another coverage, pack their own
+    for label, faults, k, ml, cov, stream in (
             ("(a) regfile", flag_faults, cfg.taint_k, False,
-             kernel.shadow_cov),
-            ("(b) mixed kinds", mixed, cfg.taint_k, True, mixed_cov),
-            ("(c) mixed kinds, K=4", mixed, 4, True, mixed_cov)):
+             kernel.shadow_cov, kernel.packed_stream),
+            ("(b) mixed kinds", mixed, cfg.taint_k, True, mixed_cov, None),
+            ("(c) mixed kinds, K=4", mixed, 4, True, mixed_cov, None)):
         t0 = time.monotonic()
-        got, ref, args, kw = both(faults, k, ml, cov)
+        got, ref, args, kw = both(kernel, faults, k, ml, cov, stream)
         max_err = max(max_err, compare(torch, got, ref, label))
         n_ovf = int(got.overflow.sum())
         n_det = int((got.outcome == C.OUTCOME_DETECTED).sum())
@@ -658,6 +784,25 @@ def main() -> int:
             fail("the mixed-kind batch detected no fault")
         if label.startswith("(c)") and n_ovf == 0:
             fail("the K=4 batch overflowed no set")
+    # (d) the flagship window with one loud step, the middle branch's
+    # outcome inverted before recording; the regfile lanes of (a)
+    taken_d, j_d = loud_branch(trace.taken, trace.opcode)
+    kernel_d = TrialKernel(trace._replace(taken=taken_d), O3Config(),
+                           device="cuda")
+    loud_d = torch.nonzero(~taint_cuda.quiet_steps(
+        kernel_d.golden_rec, kernel_d.tr)).flatten().tolist()
+    if loud_d != [j_d]:
+        fail(f"(d): loud steps {loud_d[:8]}, expected [{j_d}]")
+    t0 = time.monotonic()
+    got, ref, _, _ = both(kernel_d, flag_faults, cfg.taint_k, False,
+                          kernel_d.shadow_cov, kernel_d.packed_stream)
+    max_err = max(max_err, compare(torch, got, ref, "(d) loud step"))
+    n_stop = int((got.steps == j_d + 1).sum())
+    log(f"K1 vs plain (d) loud step {j_d}: {N_KEYS} regfile lanes equal, "
+        f"{n_stop} stopped there ({time.monotonic() - t0:.1f} s)")
+    if n_stop == 0:
+        fail("(d): no lane stopped at the loud step")
+    del kernel_d, got, ref
     marks("4 K1 vs plain")
 
     # 5. the main path, counted
@@ -694,8 +839,10 @@ def main() -> int:
 
     # 6. timings
     args, kw, got = flagship
-    k1_ms = time_ms(torch, lambda: taint_fast_cuda(*args, **kw))
-    plain_ms = time_ms(torch, lambda: taint_fast_plain(*args, **kw))
+    stream = kernel.packed_stream
+    k1_ms = time_ms(torch, lambda: taint_fast_cuda(*args, **kw,
+                                                   stream=stream))
+    plain_ms = time_ms(torch, lambda: taint_fast_plain(*args, **kw), 1)
     rec_ms = time_ms(torch, lambda: record_golden(
         kernel.tr, kernel.init_reg, kernel.init_mem, True, True))
     esc = got.escaped.cpu().numpy()
@@ -711,16 +858,33 @@ def main() -> int:
     dense_ms = time_ms(torch, lambda: kernel.run_batch(dense_lanes))
     e2e_ms = time_ms(torch, lambda: kernel.run_keys(keys, "regfile"))
 
-    live_steps = int(got.steps.to(torch.int64).sum())
     k = kw["k"]
     n, B = trace.n, N_KEYS
     bytes_moved = (16 * n * 4 + B * 8 * 4
                    + (trace.nphys + trace.mem_words) * 4
                    + B * 4 * 4 + 2 * k * B * 4)
-    ops = k1_operations(trace.opcode, flag_faults.cycle.cpu().numpy(),
-                        got.steps.cpu().numpy(), k)
+    cyc = flag_faults.cycle.cpu().numpy()
+    steps = got.steps.cpu().numpy()
+    # K1's bound two ways: the full body on every step from each lane's
+    # landing (as K2's is counted), and the function's own need
+    # (need_operations), the kernels line's
+    ops_landing = k1_operations(trace.opcode, cyc, steps, k, first=cyc)
+    counts = torch.zeros((2, B), dtype=torch.int32, device=dev)
+    taint_fast_cuda(*args, **kw, counts=counts, stream=stream)
+    loud = (~taint_cuda.quiet_steps(args[0], args[1])).cpu().numpy()
+    ops, full_steps, untouched = need_operations(
+        trace.opcode, loud, cyc, steps, counts.cpu().numpy(), k)
+    walk = int((got.steps.to(torch.int64) - taint_cuda.lane_starts(
+        flag_faults, n)).max())
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_INT32_OPS_PER_S * 1e3
+    log(f"K1 longest walk {walk} steps, {k1_ms * 1e6 / walk:.1f} ns per "
+        f"step on it; bound {max(t_bytes, t_ops):.4f} ms ({full_steps} "
+        f"full lane-steps; {untouched} untouched lane-steps walked, "
+        f"{untouched * OPS_UNTOUCHED / H100_INT32_OPS_PER_S * 1e3:.4f} ms "
+        f"of the design's own cost), "
+        f"{ops_landing / H100_INT32_OPS_PER_S * 1e3:.4f} ms counting the "
+        f"full body from each landing")
     timings = {
         "card": card, "k1_ms": k1_ms, "plain_ms": plain_ms,
         "record_golden_ms": rec_ms,
@@ -729,7 +893,13 @@ def main() -> int:
         "dense_ms": dense_ms, "dense_lanes": int(dense_lanes.kind.shape[0]),
         "dense_overflows": int(len(dense_idx)),
         "run_keys_ms": e2e_ms, "trials_per_s": N_KEYS / (e2e_ms / 1e3),
-        "live_lane_steps": live_steps, "bytes": bytes_moved, "ops": ops}
+        "bytes": bytes_moved, "ops": ops,
+        "full_lane_steps": full_steps, "untouched_lane_steps": untouched,
+        "untouched_ops": untouched * OPS_UNTOUCHED,
+        "longest_walk": walk, "ns_per_step": k1_ms * 1e6 / walk,
+        "bound_ms": max(t_bytes, t_ops),
+        "ops_from_landing": ops_landing,
+        "bound_from_landing_ms": ops_landing / H100_INT32_OPS_PER_S * 1e3}
     log(json.dumps({"timings": timings}))
     marks("6 timings")
     chunk_timings, k2_record = chunked_phases(torch, dev, marks)

@@ -55,7 +55,7 @@ from shrewd_tpu_torch.ops import window as W
 from shrewd_tpu_torch.ops.replay import ReplayResult, TraceArrays, replay
 from shrewd_tpu_torch.ops.taint import (EMPTY, GoldenRecord, record_chunk,
                                         setup_gather)
-from shrewd_tpu_torch.ops.taint_cuda import taint_chunk_cuda
+from shrewd_tpu_torch.ops.taint_cuda import pack_stream, taint_chunk_cuda
 from shrewd_tpu_torch.parallel.exec_cache import trace_digest
 
 ENGINES = ("exact", "taint")
@@ -254,7 +254,8 @@ class ChunkedCampaign:
 
     def _fast_chunk_body(self, tr: TraceArrays, cov, gold: GoldenRecord,
                          reg0, fault_b: Fault, tags0, vals0, ages,
-                         horizon: int, *, may_latch: bool, is_last: bool):
+                         horizon: int, *, may_latch: bool, is_last: bool,
+                         stream=None):
         """One chunk for B lanes on the deviation-set kernel → ``(code,
         frz, conv, tags, vals)``, all on the device.
 
@@ -263,14 +264,16 @@ class ChunkedCampaign:
         relabel (counted apart so ``horizon_sdc`` stays exact).  Fault
         coordinates arrive localized to this chunk (a carried lane's go
         negative: no fault phase re-fires); ``tags0``/``vals0`` are the
-        carried sets.  ``gold`` is the chunk's record and ``reg0`` its
-        start state, built once per chunk by the driver (the JAX package
-        records inside its per-wave executable)."""
+        carried sets.  ``gold`` is the chunk's record, ``reg0`` its start
+        state and ``stream`` the record packed for K2 (None on the CPU),
+        built once per chunk by the driver (the JAX package records inside
+        its per-wave executable)."""
         k = int(self.kernel.cfg.taint_k)
         setup = setup_gather(gold, tr, reg0, fault_b)
         (tags, vals, _steps, det, trap, div, esc,
          ovf) = taint_chunk_cuda(gold, tr, cov, fault_b, *setup, tags0,
-                                 vals0, k=k, may_latch=may_latch)
+                                 vals0, k=k, may_latch=may_latch,
+                                 stream=stream)
         frz = det | trap | div
         fb = esc | ovf
         boundary = torch.cat([gold.final_reg, gold.final_mem])
@@ -393,9 +396,12 @@ class ChunkedCampaign:
             if n_prev == 0 and fresh.size == 0:
                 continue
             is_last = c == self.C - 1
-            # once per chunk: trace views, golden record, boundary state
+            # once per chunk: trace views, golden record, boundary state,
+            # the record packed for K2
             tr, cov, gold = self.chunk_record(c)
             reg0 = self._boundary(self.gb_reg, c)
+            stream = (pack_stream(gold, tr, cov)
+                      if self.device.type == "cuda" else None)
             start = c * self.S
             nxt: dict = {"orig": [], "age": [], "tags": [], "vals": [],
                          "fault": {name: [] for name in f_host}}
@@ -442,7 +448,7 @@ class ChunkedCampaign:
                     torch.as_tensor(tags0, device=dev),
                     torch.as_tensor(vals0, device=dev),
                     torch.as_tensor(ages, device=dev), horizon,
-                    may_latch=may_latch, is_last=is_last)
+                    may_latch=may_latch, is_last=is_last, stream=stream)
                 code = code.cpu().numpy()[:b]
                 frz = frz.cpu().numpy()[:b]
                 conv = conv.cpu().numpy()[:b]

@@ -33,7 +33,7 @@ from shrewd_tpu_torch.ops.replay import ReplayResult, TraceArrays, replay
 from shrewd_tpu_torch.ops.taint import (TaintResult, fault_setup,
                                         record_golden, setup_scan,
                                         taint_replay)
-from shrewd_tpu_torch.ops.taint_cuda import taint_fast_cuda
+from shrewd_tpu_torch.ops.taint_cuda import pack_stream, taint_fast_cuda
 from shrewd_tpu_torch.trace.format import Trace
 from shrewd_tpu_torch.utils.device import resolve as resolve_device
 
@@ -61,6 +61,7 @@ class TrialKernel:
                                         device=self.device)
         self._golden: ReplayResult | None = None
         self._golden_rec = None
+        self._stream = None
         self._samplers: dict = {}
         # VA-space memory map of a lifted trace: a later slice; the chunked
         # path (ops/chunked.py) reads it as the JAX package's does
@@ -117,6 +118,16 @@ class TrialKernel:
                 reg_timeline=with_reg_t)
         return self._golden_rec
 
+    @property
+    def packed_stream(self):
+        """The golden record packed for the Hopper kernels
+        (``ops/taint_cuda.py pack_stream``), packed on first use; None on
+        the CPU, where the fast pass is the plain scan."""
+        if self._stream is None and self.device.type == "cuda":
+            self._stream = pack_stream(self.golden_rec, self.tr,
+                                       self.shadow_cov)
+        return self._stream
+
     def _setup_batch(self, faults: Fault):
         """Per-lane (gold_at_fault, alt1, alt2): timeline gathers when the
         register timeline is kept, else the setup scan."""
@@ -151,7 +162,8 @@ class TrialKernel:
         return taint_fast_cuda(self.golden_rec, self.tr, self.shadow_cov,
                                faults, gaf, alt1, alt2, k=self.cfg.taint_k,
                                compare_regs=self.cfg.compare_regs,
-                               may_latch=may_latch)
+                               may_latch=may_latch,
+                               stream=self.packed_stream)
 
     @staticmethod
     def _bucket(idx: np.ndarray) -> np.ndarray:

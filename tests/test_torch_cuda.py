@@ -15,16 +15,140 @@ import pytest
 import torch
 
 from shrewd_tpu_torch import compat, native
+from shrewd_tpu_torch.isa import uops as U
 from shrewd_tpu_torch.models.o3 import O3Config
 from shrewd_tpu_torch.ops import taint_cuda
 from shrewd_tpu_torch.ops.chunked import ChunkedCampaign
-from shrewd_tpu_torch.ops.taint import (setup_gather, taint_chunk,
-                                        taint_fast_plain)
+from shrewd_tpu_torch.ops.replay import TraceArrays
+from shrewd_tpu_torch.ops.taint import (record_golden, setup_gather,
+                                        taint_chunk, taint_fast_plain)
 from shrewd_tpu_torch.ops.taint_cuda import taint_chunk_cuda, taint_fast_cuda
 from shrewd_tpu_torch.ops.trial import TrialKernel
 from shrewd_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.cuda
+
+# --- constructions shared with tests/test_torch_quiet.py (no card needed) ---
+
+STEP_FIELDS = ("a", "b", "ea", "res", "st_old", "dst_old", "wr", "is_ld",
+               "is_st")
+
+
+def _middle(mask: np.ndarray) -> int:
+    at = np.nonzero(mask)[0]
+    return int(at[len(at) // 2])
+
+
+def loud_trace(trace, how: str):
+    """``trace`` (the port's ``Trace``) with one step made loud before
+    recording → (trace, that step).  ``misaligned_load``: the middle
+    load's ``imm`` plus one, so its address traps (it still reads the same
+    word, so no later value changes); ``divu_by_zero``: the middle µop
+    that writes 0 becomes a DIVU by a register that holds 0 there (#DE; it
+    still writes 0); ``taken_off_branch``: ``taken`` set on the middle
+    non-branch µop, which then diverges."""
+    if how == "misaligned_load":
+        j = _middle(U.is_load(trace.opcode))
+        imm = trace.imm.copy()
+        imm[j] += np.uint32(1)
+        return trace._replace(imm=imm), j
+    if how == "taken_off_branch":
+        j = _middle(~U.is_branch(trace.opcode))
+        taken = trace.taken.copy()
+        taken[j] = 1
+        return trace._replace(taken=taken), j
+    assert how == "divu_by_zero", how
+    tr = TraceArrays.from_trace(trace, "cpu")
+    gold = record_golden(tr, torch.as_tensor(trace.init_reg.astype(np.int64)),
+                         torch.as_tensor(trace.init_mem.astype(np.int64)),
+                         False, reg_timeline=True)
+    zero_reg = (gold.reg_t == 0).numpy()
+    j = _middle(gold.wr.numpy() & ~gold.is_ld.numpy()
+                & (gold.res == 0).numpy() & zero_reg.any(1))
+    opcode, src2 = trace.opcode.copy(), trace.src2.copy()
+    opcode[j] = U.DIVU
+    src2[j] = int(np.argmax(zero_reg[j]))
+    return trace._replace(opcode=opcode, src2=src2), j
+
+
+def wrong_record(gold, how: str):
+    """``gold`` with one step's values changed, so that the step is loud
+    by a clause no consistent record fires → (record, that step).
+    ``write``: the middle register write records another result (the
+    writeback upserts); ``escape``: the middle load records another word
+    (the load escapes); ``store``: the middle store records another word
+    (the store upserts)."""
+    if how == "write":
+        j = _middle((gold.wr & ~gold.is_ld).cpu().numpy())
+        res = gold.res.clone()
+        res[j] ^= 1
+        return gold._replace(res=res), j
+    assert how in ("escape", "store"), how
+    j = _middle((gold.is_ld if how == "escape" else gold.is_st).cpu().numpy())
+    ea = gold.ea.clone()
+    ea[j] ^= 4
+    return gold._replace(ea=ea), j
+
+
+def step_by_step(gold, tr, shadow_cov, faults, gold_at_fault, alt1, alt2,
+                 tags0, vals0, k: int = 16, may_latch: bool = True):
+    """The plain chunk scan taken one µop at a time: each step is a
+    ``taint_chunk`` over that µop alone, from the sets the step before
+    left and with the fault coordinates shifted to it → (the result as
+    ``taint_chunk`` gives it for the whole chunk, the sets before each
+    step ``[n, B, k]``, each lane's liveness before each step ``[n,
+    B]``)."""
+    B = faults.kind.shape[0]
+    regfile = faults.kind == 1
+    tags, vals = tags0.clone(), vals0.clone()
+    live = torch.ones(B, dtype=torch.bool, device=tags.device)
+    steps = torch.full((B,), tr.n, dtype=torch.int32, device=tags.device)
+    flags = [torch.zeros_like(live) for _ in range(5)]
+    before, alive = [], []
+    for i in range(tr.n):
+        before.append(tags)
+        alive.append(live)
+        one = slice(i, i + 1)
+        f_i = faults._replace(
+            cycle=torch.where(regfile, faults.cycle - i, faults.cycle),
+            entry=torch.where(regfile, faults.entry, faults.entry - i))
+        g_i = gold._replace(reg_t=None, mem_t=None, **{
+            x: getattr(gold, x)[one] for x in STEP_FIELDS})
+        t_i, v_i, _, *fl = taint_chunk(
+            g_i, type(tr)(*(x[one] for x in tr)), shadow_cov[one], f_i,
+            gold_at_fault, alt1, alt2, tags, vals, k=k, may_latch=may_latch)
+        stop = live & (fl[0] | fl[1] | fl[2] | fl[3] | fl[4])
+        tags = torch.where(live[:, None], t_i, tags)
+        vals = torch.where(live[:, None], v_i, vals)
+        flags = [a | (live & b) for a, b in zip(flags, fl)]
+        steps = torch.where(stop, i + 1, steps)
+        live = live & ~stop
+    return ((tags, vals, steps, *flags), torch.stack(before),
+            torch.stack(alive))
+
+
+def hit_counts(gold, tr, faults, before, alive) -> torch.Tensor:
+    """``(2, B)``: per lane, the quiet steps other than its landing that
+    it takes live with a non-empty set whose tags (src1, src2, dst, the
+    memory word of a golden load or store) hit the set (row 0) or miss it
+    (row 1) — what the kernels' ``counts`` output counts, from the sets
+    of ``step_by_step``."""
+    n = tr.n
+    kind = faults.kind.to(torch.int64)
+    land = torch.where(kind == 1, faults.cycle.to(torch.int64),
+                       torch.where((kind >= 2) & (kind <= 9),
+                                   faults.entry.to(torch.int64), -1))
+    nphys, mem_words = gold.final_reg.shape[0], gold.final_mem.shape[0]
+    mem = gold.is_ld | gold.is_st
+    mtag = torch.where(mem, nphys + ((gold.ea >> 2) & (mem_words - 1)), -2)
+    present = before != -1
+    touch = torch.zeros_like(alive)
+    for t in (tr.src1, tr.src2, tr.dst, mtag):
+        touch |= (present & (before == t[:, None, None])).any(2)
+    steps_i = torch.arange(n, device=land.device)[:, None]
+    taken = (alive & present.any(2) & (land[None, :] != steps_i)
+             & taint_cuda.quiet_steps(gold, tr)[:, None])
+    return torch.stack([(taken & touch).sum(0), (taken & ~touch).sum(0)])
 
 
 @pytest.fixture
@@ -190,3 +314,157 @@ def test_chunked_path_on_card_launches_k2_and_equals_exact(kernel,
                                                                 "regfile"))
     np.testing.assert_array_equal(
         out, kernel.oracle_outcomes(kernel.sample_batch(keys, "regfile")))
+
+
+# --- step skipping: loud steps, null and converging lanes ---------------
+
+@pytest.fixture
+def loud_kernel(cuda):
+    """A window with one loud step: the middle branch's ``taken`` inverted
+    before recording, so every lane live there with an empty set
+    diverges at it."""
+    t = native.generate_trace(seed=5, n=512, nphys=64, mem_words=1024,
+                              working_set_words=256)
+    br = np.nonzero(U.is_branch(t.opcode))[0]
+    j = int(br[len(br) // 2])
+    taken = t.taken.copy()
+    taken[j] ^= 1
+    kernel = TrialKernel(t._replace(taken=taken),
+                         O3Config(shadow_coverage=[0.5] * 7), device=cuda)
+    quiet = taint_cuda.quiet_steps(kernel.golden_rec, kernel.tr)
+    assert torch.nonzero(~quiet).flatten().tolist() == [j]
+    return kernel, j
+
+
+@pytest.mark.parametrize("k", [16, 4])
+def test_kernels_match_plain_on_a_loud_window(loud_kernel, k):
+    kernel, j = loud_kernel
+    got, ref = _both(kernel, _mixed(kernel, 2048, 13), k, True)
+    _assert_equal(got, ref)
+    assert bool((got.steps == j + 1).any())
+    # K2 on the chunk holding the loud step, a third of the lanes carried
+    c = j // 200
+    args = _chunk_args(kernel, 200, c, 1000, k, 31)
+    got = taint_chunk_cuda(*args, k=k, may_latch=True)
+    torch.cuda.synchronize()
+    ref = taint_chunk(*args, k=k, may_latch=True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+    assert bool((got[2] == j - c * 200 + 1).any())
+
+
+def test_chunk_kernel_on_null_and_converging_lanes(kernel):
+    """A wave as the chunked driver builds it: regfile lanes landing in
+    the chunk (most of them converge: their set empties and they jump to
+    the end) and null padding."""
+    camp = ChunkedCampaign(kernel, chunk=256)
+    tr, cov, gold = camp.chunk_record(0)
+    keys = prng.trial_keys(prng.campaign_key(8), 384)
+    f = kernel.sample_batch(keys, "regfile")
+    f = f._replace(cycle=torch.where(f.cycle < 256, f.cycle, -1))
+    null = compat.fault_from_arrays(
+        np.zeros(128, np.int64), np.full(128, -1), np.full(128, -1),
+        np.zeros(128, np.int64), np.ones(128, np.float32), kernel.device)
+    faults = type(f)(*(torch.cat([a, b]) for a, b in zip(f, null)))
+    B, k = 512, kernel.cfg.taint_k
+    reg0 = torch.as_tensor(camp.gb_reg[0].astype(np.int64),
+                           device=kernel.device)
+    tags0 = torch.full((B, k), -1, dtype=torch.int64, device=kernel.device)
+    args = (gold, tr, cov, faults, *setup_gather(gold, tr, reg0, faults),
+            tags0, torch.zeros_like(tags0))
+    counts = torch.zeros((2, B), dtype=torch.int32, device=kernel.device)
+    got = taint_chunk_cuda(*args, k=k, may_latch=False, counts=counts)
+    torch.cuda.synchronize()
+    ref = taint_chunk(*args, k=k, may_latch=False)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+    tags, steps = got[0], got[2]
+    landed = (faults.cycle >= 0) & (faults.kind == 1)
+    converged = landed & (tags == -1).all(1) & (steps == 256)
+    assert bool(converged.any())
+    assert bool((steps[384:] == 256).all()) and not bool(counts[:, 384:].any())
+    # a lane takes each step at most once
+    assert bool((counts.sum(0) <= steps).all())
+
+
+@pytest.mark.parametrize("how", ["misaligned_load", "divu_by_zero",
+                                 "taken_off_branch"])
+def test_kernels_match_plain_on_other_loud_windows(cuda, how):
+    """Windows made loud at one step by another clause than a branch
+    (``loud_trace``): K1 over the window and K2 on the chunk that holds
+    the step, bitwise against their plain versions."""
+    t, j = loud_trace(native.generate_trace(
+        seed=5, n=512, nphys=64, mem_words=1024, working_set_words=256), how)
+    kernel = TrialKernel(t, O3Config(shadow_coverage=[0.5] * 7),
+                         device=cuda)
+    quiet = taint_cuda.quiet_steps(kernel.golden_rec, kernel.tr)
+    assert torch.nonzero(~quiet).flatten().tolist() == [j]
+    got, ref = _both(kernel, _mixed(kernel, 2048, 14), 16, True)
+    _assert_equal(got, ref)
+    assert bool((got.steps == j + 1).any())
+    c = j // 200
+    args = _chunk_args(kernel, 200, c, 1000, 16, 32)
+    got = taint_chunk_cuda(*args, k=16, may_latch=True)
+    torch.cuda.synchronize()
+    ref = taint_chunk(*args, k=16, may_latch=True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+    assert bool((got[2] == j - c * 200 + 1).any())
+
+
+@pytest.mark.parametrize("how", ["write", "escape", "store"])
+def test_kernels_match_plain_on_a_wrong_record(kernel, how):
+    """A record loud at one step by a clause no consistent record fires
+    (``wrong_record``): both kernels read it as their plain versions do."""
+    gold, j = wrong_record(kernel.golden_rec, how)
+    quiet = taint_cuda.quiet_steps(gold, kernel.tr)
+    assert torch.nonzero(~quiet).flatten().tolist() == [j]
+    faults = _mixed(kernel, 2048, 15)
+    args = (gold, kernel.tr, kernel.shadow_cov, faults,
+            *kernel._setup_batch(faults))
+    kw = dict(k=16, compare_regs=kernel.cfg.compare_regs, may_latch=True)
+    got = taint_fast_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_equal(got, taint_fast_plain(*args, **kw))
+    B = faults.kind.shape[0]
+    sets = (torch.full((B, 16), -1, dtype=torch.int64, device=kernel.device),
+            torch.zeros((B, 16), dtype=torch.int64, device=kernel.device))
+    got = taint_chunk_cuda(*args, *sets, k=16, may_latch=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, taint_chunk(*args, *sets, k=16, may_latch=True)):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+
+
+@pytest.mark.parametrize("k", [16, 4])
+def test_hit_counts_equal_an_independent_count(kernel, k):
+    """The kernels' ``counts`` output, which sets the bound in
+    ``chip_smoke.py``, equals ``hit_counts`` of the plain scan taken one
+    step at a time: K2 on a chunk with carried sets, K1 over the
+    window."""
+    args = _chunk_args(kernel, 200, 0, 256, k, 41)
+    B = args[3].kind.shape[0]
+    counts = torch.zeros((2, B), dtype=torch.int32, device=kernel.device)
+    got = taint_chunk_cuda(*args, k=k, may_latch=True, counts=counts)
+    torch.cuda.synchronize()
+    chained, before, alive = step_by_step(*args, k=k, may_latch=True)
+    for a, b in zip(got, chained):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+    want = hit_counts(args[0], args[1], args[3], before, alive)
+    assert torch.equal(counts.to(torch.int64), want)
+    assert bool((want > 0).any(1).all())
+
+    faults = _mixed(kernel, 256, 42)
+    setup = kernel._setup_batch(faults)
+    args = (kernel.golden_rec, kernel.tr, kernel.shadow_cov, faults, *setup)
+    counts.zero_()
+    got = taint_fast_cuda(*args, k=k, may_latch=True, counts=counts)
+    torch.cuda.synchronize()
+    sets = (torch.full((B, k), -1, dtype=torch.int64, device=kernel.device),
+            torch.zeros((B, k), dtype=torch.int64, device=kernel.device))
+    chained, before, alive = step_by_step(*args, *sets, k=k, may_latch=True)
+    for field, b in zip(("tags", "vals", "steps"), chained):
+        assert torch.equal(getattr(got, field).to(torch.int64),
+                           b.to(torch.int64)), field
+    want = hit_counts(args[0], args[1], faults, before, alive)
+    assert torch.equal(counts.to(torch.int64), want)
+    assert bool((want > 0).any(1).all())

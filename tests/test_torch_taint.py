@@ -150,10 +150,33 @@ def test_wrapper_runs_the_plain_version_for_cpu_tensors(pair):
 
 def test_kernel_stream_layout(pair):
     s = taint_cuda.pack_stream(pair.gold, pair.tr, torch.as_tensor(pair.sc))
-    assert s.dtype == torch.int32 and s.shape == (16, pair.t.n)
-    assert s.is_contiguous()
-    np.testing.assert_array_equal(s[0].numpy(), pair.t.opcode)
-    np.testing.assert_array_equal(s[4].numpy().view(np.uint32), pair.t.imm)
+    n, nphys = pair.t.n, pair.t.nphys
+    assert s.dtype == torch.int32 and s.shape == (n, 16)
+    assert s.is_contiguous()                  # 64 B per step, step-major
+    g = pair.goldR
+    ld, st = np.asarray(g.is_ld), np.asarray(g.is_st)
+    # op | flags << 8; a generated window is quiet everywhere: no LOUD bit
+    flags = (np.asarray(g.wr).astype(int) | ld << 1 | st << 2
+             | (pair.t.taken != 0) << 4)
+    np.testing.assert_array_equal(s[:, 0].numpy(),
+                                  pair.t.opcode | flags << 8)
+    np.testing.assert_array_equal(s[:, 4].numpy().view(np.uint32),
+                                  pair.t.imm)
     np.testing.assert_array_equal(
-        s[9].numpy().view(np.uint32), np.asarray(pair.goldR.res))
-    np.testing.assert_array_equal(s[15].numpy().view(np.float32), pair.sc)
+        s[:, 8].numpy().view(np.uint32), np.asarray(g.res))
+    mslot = (np.asarray(g.ea).astype(np.int64) >> 2) & (pair.t.mem_words - 1)
+    mtag = np.where(ld | st, nphys + mslot, -1)
+    np.testing.assert_array_equal(s[:, 11].numpy(), mtag)
+    assert (s[:, 12].numpy() == n).all()      # no loud step after any
+    # the filter probe: bit (tag * 0x9E3779B1 mod 2**32) >> 26 of each tag
+    probe = s[:, 13].numpy().view(np.uint32).astype(np.uint64) | \
+        s[:, 14].numpy().view(np.uint32).astype(np.uint64) << np.uint64(32)
+
+    def bit(tag):
+        h = (tag.astype(np.uint64) * np.uint64(0x9E3779B1)) & \
+            np.uint64(0xFFFFFFFF)
+        return np.uint64(1) << (h >> np.uint64(26))
+    want = (bit(pair.t.src1) | bit(pair.t.src2) | bit(pair.t.dst)
+            | np.where(ld | st, bit(np.maximum(mtag, 0)), np.uint64(0)))
+    np.testing.assert_array_equal(probe, want)
+    np.testing.assert_array_equal(s[:, 15].numpy().view(np.float32), pair.sc)
