@@ -21,7 +21,7 @@ JAX.  Phases, each fatal:
    detected, (c) the same lanes through the K=4 build, where some sets
    overflow, (d) the lanes of (a) on the flagship window with one loud
    step (its middle branch's outcome inverted before recording), where
-   some lanes stop;
+   some lanes stop, and (e) the structure lanes (below);
 5. the main path, ``run_keys(trial_keys(campaign_key(0), 131072),
    "regfile")``, with the kernel's launch count zeroed just before it: the
    tally sums to the batch, the first 4096 keys give the JAX reference's
@@ -59,7 +59,33 @@ JAX.  Phases, each fatal:
     plain version (timed once, in (a)), the chunk record, the setup
     gathers, the exact fallback and the preprocessing; K2's bound over
     those waves (the function's own need, and the full body from each
-    landing) and each wave's longest walk with its ns per step.
+    landing) and each wave's longest walk with its ns per step;
+11. the structure path: the flagship window as a ``TrialKernel`` with
+    ``O3Config(shadow_model="fupool")`` (SHREWD's shadow-FU pool under
+    the scoreboard's schedule; its availability counters printed); for
+    each of fu, rob, iq, lsq and latch, ``run_keys(trial_keys(
+    campaign_key(0), 131072), s)`` with K1's launch count zeroed just
+    before it: exactly one K1 launch and no call of its plain version,
+    the tally sums to the batch, the first 1024 keys give the JAX
+    reference's pinned tally, 2048 outcomes equal the serial C++
+    oracle's under the kernel's coverage, and K1 equals its plain version
+    bitwise on all 131072 lanes; then the call timed once and K1 on its
+    lanes (median of 5);
+12. the campaign loop: ``run_until_ci(ShardedCampaign(kernel, None, s,
+    stratify=True), seed=0, simpoint_id=0, structure_id=k,
+    batch_size=4096, target_halfwidth=0.01)`` for regfile and fu, K1's
+    count zeroed before each: converged, one K1 launch per batch, the
+    tallies, strata, trials, batches and interval equal the JAX
+    reference's pins; then, untimed, one ``tally_batch`` of 512 fu keys
+    through the ``chunked=`` route on the chunked window at chunk 65536
+    (K2's count zeroed before it): one K2 launch per fast wave, no call of
+    the plain chunk scan, the tally equals the C++ oracle's, and K2 equals
+    its plain version on the route's first wave.
+
+Batch (e) of phase 4 holds K1 against its plain version on the lanes the
+structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
+port's own samplers, with wrong-path sentinels, pipeline bubbles and the
+FU pool's coverage.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (K1 ``taint_fast`` and K2 ``taint_chunk``); the last line is
@@ -140,6 +166,44 @@ N_CHUNK_MIXED = 2048
 # tests/test_torch_chunked.py recomputes it and holds it equal)
 PIN_CHUNKED = ("00000000022200000200000200000000"
                "00000020000220200020000022000000")
+
+# the structure path (batch (e), phases 11-12): the flagship window with
+# SHREWD's structural shadow-FU model
+FLAGSHIP = dict(seed=1, n=4096, nphys=256, mem_words=4096,
+                working_set_words=1024)
+N_STRUCT_MIXED = 2048           # batch (e): lanes per structure
+N_PIN_S = 1024
+# the JAX reference's tallies (masked, sdc, due, detected) of the first
+# 1024 keys of trial_keys(campaign_key(0), .) per structure on the
+# flagship window under O3Config(shadow_model="fupool") (shrewd_tpu
+# TrialKernel.run_keys on CPU; tests/test_torch_structure_pins.py
+# recomputes them and holds them equal to this constant)
+PIN_STRUCTURES = {"fu": [260, 39, 464, 261], "rob": [818, 31, 175, 0],
+                  "iq": [866, 37, 121, 0], "lsq": [437, 120, 467, 0],
+                  "latch": [569, 85, 370, 0]}
+# the JAX reference's run_until_ci(ShardedCampaign(kernel, one-device
+# mesh, s, stratify=True), seed=0, simpoint_id=0, structure_id=k,
+# batch_size=4096, target_halfwidth=0.01) on that kernel, k = s's position
+# in STRUCTURES (tests/test_torch_campaign_pins.py recomputes them)
+CI_BATCH = 4096
+CI_TARGET = 0.01
+PIN_CI = {
+    "regfile": dict(
+        tallies=[6182, 925, 1085, 0], trials=8192, batches=2,
+        strata=[[872, 27, 144, 0], [869, 18, 134, 0], [871, 33, 131, 0],
+                [794, 57, 180, 0], [797, 36, 136, 0], [839, 60, 123, 0],
+                [746, 143, 154, 0], [394, 551, 83, 0]],
+        avf_interval=(0.245361328125, 0.23658525821866982,
+                      0.2541373980313302)),
+    "fu": dict(
+        tallies=[790, 658, 1624, 1024], trials=4096, batches=1,
+        strata=[[649, 1, 2, 816], [0, 0, 0, 208], [90, 623, 1491, 0],
+                [1, 34, 131, 0], [50, 0, 0, 0], [0, 0, 0, 0],
+                [0, 0, 0, 0], [0, 0, 0, 0]],
+        avf_interval=(0.55712890625, 0.5523538694969201,
+                      0.5619039430030799)),
+}
+N_CHUNK_FU = 512                # phase 12: the chunked route, fu keys
 
 
 def log(msg: str) -> None:
@@ -684,6 +748,229 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
     return timings, record
 
 
+def structure_lanes(faults, n: int) -> dict:
+    """Counts of a batch's lanes that land nowhere: the wrong-path
+    sentinel (entry == n) and pipeline bubbles (entry < 0 or > n)."""
+    entry = faults.entry.cpu().numpy().astype(np.int64)
+    return {"sentinel": int((entry == n).sum()),
+            "bubble": int(((entry < 0) | (entry > n)).sum())}
+
+
+def structure_phases(torch, dev, marks, kernel, keys, card) -> dict:
+    """Phases 11-12 on the flagship window's fupool kernel → the timings
+    and K1's and K2's launches on each path."""
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.models.o3 import STRUCTURES, O3Config
+    from shrewd_tpu_torch.ops import chunked as CH
+    from shrewd_tpu_torch.ops import classify as C
+    from shrewd_tpu_torch.ops import taint_cuda
+    from shrewd_tpu_torch.ops.chunked import ChunkedCampaign
+    from shrewd_tpu_torch.ops.taint import taint_chunk
+    from shrewd_tpu_torch.ops.taint_cuda import (taint_chunk_cuda,
+                                                 taint_fast_cuda)
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.parallel import ShardedCampaign, run_until_ci
+    from shrewd_tpu_torch.utils import prng
+
+    plain_calls = [0]
+    plain = taint_cuda.taint_fast_plain
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    taint_cuda.taint_fast_plain = counted_plain
+    timings: dict = {"card": card}
+    launches: dict = {}
+    max_err = 0
+
+    # 11. the structure path
+    log("FU pool availability (fupool under the scoreboard's schedule): "
+        + json.dumps(kernel.fu_model.availability()))
+    log("FU pool availability with wrong-path phantoms: "
+        + json.dumps(kernel.fu_model.availability(include_phantoms=True)))
+    for s in ("fu", "rob", "iq", "lsq", "latch"):
+        t0 = time.monotonic()
+        kernel.escapes = 0
+        taint_fast_cuda.launches = 0
+        tally = kernel.run_keys(keys, s)
+        torch.cuda.synchronize()
+        n_launch = taint_fast_cuda.launches
+        t_main = time.monotonic() - t0
+        escapes = kernel.escapes
+        tally = tally.tolist()
+        if n_launch != 1:
+            fail(f"{s}: run_keys launched K1 {n_launch} times, not once")
+        if plain_calls[0]:
+            fail(f"{s}: run_keys called K1's plain version")
+        if sum(tally) != N_KEYS:
+            fail(f"{s}: tally {tally} sums to {sum(tally)}, not {N_KEYS}")
+        sub = kernel.sample_batch(keys[:N_ORACLE], s)
+        if sub.kind.device.type != "cuda":
+            fail(f"{s}: faults drawn on {sub.kind.device}")
+        hybrid = kernel.run_batch_hybrid(sub, may_latch=s == "latch")
+        pin = np.bincount(hybrid[:N_PIN_S], minlength=C.N_OUTCOMES).tolist()
+        if pin != PIN_STRUCTURES[s]:
+            fail(f"{s}: first {N_PIN_S} keys: tally {pin} != JAX reference "
+                 f"{PIN_STRUCTURES[s]}")
+        oracle = kernel.oracle_outcomes(sub)
+        bad = int((hybrid != oracle).sum())
+        if bad:
+            fail(f"{s}: {bad}/{N_ORACLE} outcomes differ from the C++ "
+                 f"oracle")
+        # K1 against its plain version on every lane the path drew, at the
+        # path's own launch shape (its block size follows the batch)
+        faults = kernel.sample_batch(keys, s)
+        args = (kernel.golden_rec, kernel.tr, kernel.shadow_cov, faults,
+                *kernel._setup_batch(faults))
+        kw = dict(k=kernel.cfg.taint_k, compare_regs=kernel.cfg.compare_regs,
+                  may_latch=s == "latch")
+        t0 = time.monotonic()
+        got = taint_fast_cuda(*args, **kw, stream=kernel.packed_stream)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare(torch, got, plain(*args, **kw),
+                                       f"{s} at full width"))
+        t_plain = time.monotonic() - t0
+        del got
+        t0 = time.monotonic()
+        kernel.run_keys(keys, s)
+        torch.cuda.synchronize()
+        run_ms = (time.monotonic() - t0) * 1e3
+        k1_ms = time_ms(torch, lambda: taint_fast_cuda(
+            *args, **kw, stream=kernel.packed_stream))
+        if plain_calls[0]:
+            fail(f"{s}: the timed run called K1's plain version")
+        lanes = structure_lanes(faults, kernel.trace.n)
+        launches[f"run_keys {s}"] = n_launch
+        timings[f"run_keys_{s}"] = {
+            "tally": tally, "ms": run_ms,
+            "trials_per_s": N_KEYS / (run_ms / 1e3), "k1_ms": k1_ms,
+            "escapes_resolved": escapes, **lanes}
+        log(f"{s}: run_keys({N_KEYS}) tally {tally}, 1 K1 launch, 0 plain "
+            f"calls, first {N_PIN_S} keys == JAX pin, {N_ORACLE} outcomes "
+            f"== C++ oracle, K1 == plain on all {N_KEYS} lanes ("
+            f"{t_plain:.1f} s); {lanes['sentinel']} sentinel and "
+            f"{lanes['bubble']} bubble lanes; {run_ms:.1f} ms = "
+            f"{N_KEYS / (run_ms / 1e3):,.0f} trials/s, K1 {k1_ms:.3f} ms "
+            f"({card}; first run {t_main:.1f} s, {escapes} escaped lanes "
+            f"resolved)")
+    marks("11 structure path")
+
+    # 12. the campaign loop
+    order = list(STRUCTURES)
+    for s in ("regfile", "fu"):
+        pin = PIN_CI[s]
+        kernel.escapes = 0
+        taint_fast_cuda.launches = 0
+        r = run_until_ci(ShardedCampaign(kernel, None, s, stratify=True),
+                         seed=0, simpoint_id=0, structure_id=order.index(s),
+                         batch_size=CI_BATCH, target_halfwidth=CI_TARGET)
+        n_launch = taint_fast_cuda.launches
+        if not r.converged:
+            fail(f"run_until_ci {s}: not converged after {r.trials} trials")
+        if n_launch != r.batches:
+            fail(f"run_until_ci {s}: {n_launch} K1 launches for "
+                 f"{r.batches} batches")
+        if plain_calls[0]:
+            fail(f"run_until_ci {s}: called K1's plain version")
+        got = dict(tallies=r.tallies.tolist(), trials=r.trials,
+                   batches=r.batches, strata=r.strata_tallies.tolist())
+        want = {key: pin[key] for key in got}
+        if got != want:
+            fail(f"run_until_ci {s}: {got} != JAX reference {want}")
+        err = max(abs(a - b) for a, b in zip(r.avf_interval,
+                                             pin["avf_interval"]))
+        if err > 1e-12:
+            fail(f"run_until_ci {s}: interval {tuple(r.avf_interval)} != "
+                 f"JAX reference {pin['avf_interval']}")
+        launches[f"run_until_ci {s}"] = n_launch
+        timings[f"run_until_ci_{s}"] = {
+            "tallies": got["tallies"], "trials": r.trials,
+            "batches": r.batches, "avf_interval": list(r.avf_interval),
+            "wall_s": r.wall_seconds, "trials_per_s": r.trials_per_second,
+            "escapes": kernel.escapes}
+        log(f"run_until_ci {s}: converged, {r.batches} batch(es) of "
+            f"{CI_BATCH}, tallies {got['tallies']}, AVF interval "
+            f"{tuple(r.avf_interval)} == JAX pins, {n_launch} K1 launch(es)"
+            f"; {r.trials_per_second:,.0f} trials/s, {kernel.escapes} "
+            f"unresolved lanes ({card})")
+    taint_cuda.taint_fast_plain = plain
+    # the chunked route, untimed: fu keys on the chunked window
+    trace16 = native.generate_trace(**CHUNK_WINDOW)
+    t0 = time.monotonic()
+    k16 = TrialKernel(trace16, O3Config(shadow_model="fupool"), device=dev)
+    t_build = time.monotonic() - t0
+    camp = ChunkedCampaign(k16, chunk=CHUNK)
+    keys16 = prng.trial_keys(prng.campaign_key(CHUNK_SEED, dev), N_CHUNK_FU)
+    # as phase 9: the exact fallback's waves counted apart, every K2
+    # launch kept, and the plain chunk scan counted
+    exact_waves = [0]
+    run_exact = camp._outcomes_exact
+
+    def counted_exact(f_host, outcomes, land_chunk, st):
+        w0 = st["waves"]
+        run_exact(f_host, outcomes, land_chunk, st)
+        exact_waves[0] += st["waves"] - w0
+
+    fu_waves: list = []
+
+    def kept_launch(*a, **kw):
+        got = taint_chunk_cuda(*a, **kw)
+        fu_waves.append((a, kw, got))
+        return got
+
+    chunk_plain = [0]
+
+    def counted_chunk_plain(*a, **kw):
+        chunk_plain[0] += 1
+        return taint_chunk(*a, **kw)
+
+    camp._outcomes_exact = counted_exact
+    CH.taint_chunk_cuda = kept_launch
+    taint_cuda.taint_chunk = counted_chunk_plain
+    taint_chunk_cuda.launches = 0
+    t0 = time.monotonic()
+    tally = ShardedCampaign(k16, None, "fu", chunked=camp).tally_batch(
+        keys16).tolist()
+    torch.cuda.synchronize()
+    t_route = time.monotonic() - t0
+    n_launch = taint_chunk_cuda.launches
+    CH.taint_chunk_cuda = taint_chunk_cuda
+    taint_cuda.taint_chunk = taint_chunk
+    fast_waves = camp.last_stats["waves"] - exact_waves[0]
+    if n_launch < 1 or n_launch != fast_waves:
+        fail(f"chunked route fu: {n_launch} K2 launches for {fast_waves} "
+             f"fast waves")
+    if chunk_plain[0]:
+        fail(f"chunked route fu: called the plain chunk scan "
+             f"{chunk_plain[0]} times")
+    oracle = np.bincount(k16.oracle_outcomes(k16.sample_batch(keys16, "fu")),
+                         minlength=C.N_OUTCOMES).tolist()
+    if tally != oracle:
+        fail(f"chunked route fu: tally {tally} != C++ oracle {oracle}")
+    # K2 against its plain version on the route's first wave (a plain
+    # 65536-step wave takes 65-95 s, so one of them)
+    a, kw, got = fu_waves[0]
+    t0 = time.monotonic()
+    ref = taint_chunk(*a, **{x: v for x, v in kw.items() if x != "stream"})
+    k2_err = compare_chunk(torch, got, ref, "chunked route fu wave 0")
+    t_plain = time.monotonic() - t0
+    launches["chunked tally_batch fu"] = n_launch
+    timings["chunked_fu"] = {"tally": tally, "stats": camp.last_stats,
+                             "kernel_build_s": t_build,
+                             "wave0_plain_s": t_plain}
+    log(f"chunked route: tally_batch({N_CHUNK_FU} fu keys) at S={CHUNK} "
+        f"tally {tally} == C++ oracle, {n_launch} K2 launch(es) for "
+        f"{fast_waves} fast waves, 0 plain calls, stats {camp.last_stats}; "
+        f"K2 == plain on wave 0 ({a[3].kind.shape[0]} lanes, "
+        f"{int(got[6].sum())} escaped; plain {t_plain:.1f} s); fupool "
+        f"kernel on {trace16.n} µops built in {t_build:.1f} s, route "
+        f"{t_route:.1f} s")
+    marks("12 campaign loop")
+    return {"timings": timings, "launches": launches,
+            "k1_max_err": max_err, "k2_max_err": k2_err}
+
+
 def main() -> int:
     import torch
 
@@ -739,6 +1026,15 @@ def main() -> int:
         f"{trace.mem_words}: golden record {time.monotonic() - t0:.1f} s, "
         f"mem_t {'on' if gold.mem_t is not None else 'off'}")
     keys = prng.trial_keys(prng.campaign_key(0), N_KEYS)
+    t0 = time.monotonic()
+    kernel_s = TrialKernel(trace, O3Config(shadow_model="fupool"),
+                           device="cuda")
+    _ = kernel_s.packed_stream
+    torch.cuda.synchronize()
+    log(f"the same window with O3Config(shadow_model='fupool'): scoreboard, "
+        f"FU pool and golden record {time.monotonic() - t0:.1f} s, "
+        f"coverage > 0 on {int((kernel_s.shadow_cov > 0).sum())} of "
+        f"{trace.n} µops")
     marks("3 window")
 
     # 4. kernel vs its plain version on the card
@@ -803,6 +1099,35 @@ def main() -> int:
     if n_stop == 0:
         fail("(d): no lane stopped at the loud step")
     del kernel_d, got, ref
+    # (e) the lanes the structure path draws, from the port's own samplers
+    # on the fupool kernel: fu, rob, iq and lsq together (may_latch off, as
+    # their main path runs), then latch
+    from shrewd_tpu_torch.models.o3 import Fault
+    sub_keys = keys[:N_STRUCT_MIXED]
+    drawn = {s: kernel_s.sample_batch(sub_keys, s)
+             for s in ("fu", "rob", "iq", "lsq", "latch")}
+    for label, group, ml in (("(e) fu, rob, iq, lsq", ("fu", "rob", "iq",
+                                                       "lsq"), False),
+                             ("(e) latch", ("latch",), True)):
+        faults = Fault(*(torch.cat(parts) for parts in
+                         zip(*(drawn[s] for s in group))))
+        t0 = time.monotonic()
+        got, ref, _, _ = both(kernel_s, faults, cfg.taint_k, ml,
+                              kernel_s.shadow_cov, kernel_s.packed_stream)
+        max_err = max(max_err, compare(torch, got, ref, label))
+        counts = {s: structure_lanes(drawn[s], trace.n) for s in group}
+        n_det = int((got.outcome == C.OUTCOME_DETECTED).sum())
+        log(f"K1 vs plain {label}: {faults.kind.shape[0]} lanes equal, "
+            f"{int(got.escaped.sum())} escaped, {int(got.overflow.sum())} "
+            f"overflowed, {n_det} detected, sentinel/bubble lanes {counts} "
+            f"({time.monotonic() - t0:.1f} s)")
+        if ml and counts["latch"]["bubble"] == 0:
+            fail("(e): no latch lane is a pipeline bubble")
+        if not ml and (n_det == 0 or min(
+                c["sentinel"] for c in counts.values()) == 0):
+            fail("(e): no FU fault detected, or a structure drew no "
+                 "wrong-path sentinel")
+    del drawn, got, ref
     marks("4 K1 vs plain")
 
     # 5. the main path, counted
@@ -904,11 +1229,24 @@ def main() -> int:
     marks("6 timings")
     chunk_timings, k2_record = chunked_phases(torch, dev, marks)
     log(json.dumps({"timings": {"card": card, **chunk_timings}}))
+    paths = structure_phases(torch, dev, marks, kernel_s, keys, card)
+    log(json.dumps({"timings": paths["timings"]}))
+    # launches on each main path, each counted from 0 just before it
+    k1_paths = {"run_keys regfile": launches, **{
+        p: n for p, n in paths["launches"].items() if "chunked" not in p}}
+    k2_paths = {"outcomes_from_keys regfile": k2_record["launches"], **{
+        p: n for p, n in paths["launches"].items() if "chunked" in p}}
+    max_err = max(max_err, paths["k1_max_err"])
+    k2_err = max(k2_record["max_abs_err"], paths["k2_max_err"])
+    k2_record.update(launches=sum(k2_paths.values()),
+                     launches_by_path=k2_paths, max_abs_err=float(k2_err),
+                     matches_plain=k2_err == 0)
     record = {"kernels": [{
         "name": "taint_fast", "route": "cuda",
         "source": "shrewd_tpu_torch/csrc/taint_fast.cu",
         "replaces": "shrewd_tpu/ops/pallas_taint.py:513",
-        "launches": launches, "max_abs_err": float(max_err),
+        "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
+        "max_abs_err": float(max_err),
         "matches_plain": max_err == 0,
         "ms": k1_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),

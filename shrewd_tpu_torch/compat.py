@@ -14,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from shrewd_tpu_torch.models.minor import MinorConfig
 from shrewd_tpu_torch.models.o3 import Fault, O3Config
+from shrewd_tpu_torch.models.timing import Scoreboard
 from shrewd_tpu_torch.ops.window import TRACE_FIELDS, PreprocessedWindow
 from shrewd_tpu_torch.trace.format import Trace
 from shrewd_tpu_torch.utils.device import resolve as resolve_device
@@ -39,6 +41,26 @@ def trace_from_arrays(opcode, dst, src1, src2, imm, taken, init_reg,
 def config_from_dict(d: dict) -> O3Config:
     """A reference ``O3Config.to_dict()`` → the port's ``O3Config``."""
     return O3Config.from_dict(d)
+
+
+def minor_config_from_dict(d: dict) -> MinorConfig:
+    """A reference ``MinorConfig.to_dict()`` → the port's ``MinorConfig``."""
+    return MinorConfig.from_dict(d)
+
+
+def scoreboard_from_arrays(dispatch, issue, writeback, commit,
+                           mispredict=None, wp_mass_rob=0, wp_mass_iq=0,
+                           wp_mass_fu=0, wp_mass_lsq=0) -> Scoreboard:
+    """A reference ``Scoreboard``'s fields, in order (``*sb``) → the
+    port's, with int64 timestamp arrays."""
+    def stamps(x):
+        return np.asarray(x, dtype=np.int64)
+    return Scoreboard(stamps(dispatch), stamps(issue), stamps(writeback),
+                      stamps(commit),
+                      None if mispredict is None
+                      else np.asarray(mispredict, dtype=bool),
+                      int(wp_mass_rob), int(wp_mass_iq), int(wp_mass_fu),
+                      int(wp_mass_lsq))
 
 
 def keys_from_key_data(key_data, device=None) -> torch.Tensor:

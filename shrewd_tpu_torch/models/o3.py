@@ -1,16 +1,18 @@
 """O3 fault-target model: structures, fault descriptors, samplers.
 
-Port of ``shrewd_tpu/models/o3.py`` for the regfile slice: the ``KIND_*``
-codes, ``STRUCTURES``, ``Fault``/``null_fault``, ``O3Config`` (same param
-names, defaults and children, so ``to_dict()`` compares equal to the
-reference's), ``compute_shadow_cov`` for ``shadow_model="coverage"`` and the
-regfile ``FaultSampler``.
+Port of ``shrewd_tpu/models/o3.py``: the ``KIND_*`` codes, ``STRUCTURES``,
+``Fault``/``null_fault``, ``O3Config`` (same param names, defaults and
+children, so ``to_dict()`` compares equal to the reference's),
+``compute_shadow_cov`` for both shadow models (the per-OpClass coverage and
+the structural FU pool, ``models/fupool.py``) and ``FaultSampler`` for
+regfile, fu, rob, iq and lsq under both timing models (the 1-IPC proxy and
+the scoreboard's residency draw, ``models/timing.py``).  Latch faults are
+drawn by ``models/minor.py``.
 
-Not in this slice: the structural ``shadow_model="fupool"`` (the reference's
-``models/fupool.py``), the scoreboard timing model (``models/timing.py``)
-and the fu/rob/iq/lsq/latch samplers that draw through it — they raise
-``NotImplementedError``.  Only the *config* declarations of the FU pool and
-of the timing model live here, because ``O3Config`` nests them.
+The µop's trace index doubles as its timestamp; ROB/IQ/LSQ entry faults
+are addressed by the struck µop index.  A residency draw that lands in the
+wrong-path mass gets the sentinel entry ``n``, which no replay step
+matches: masked by construction.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import numpy as np
 import torch
 
 from shrewd_tpu_torch.isa import uops as U
+from shrewd_tpu_torch.models.fupool import FUPoolConfig, FUPoolModel
+from shrewd_tpu_torch.models.timing import (ResidencySampler, TimingConfig,
+                                            compute_scoreboard)
 from shrewd_tpu_torch.trace.format import Trace
 from shrewd_tpu_torch.utils import prng
 from shrewd_tpu_torch.utils.config import (Child, ConfigObject, Param,
@@ -54,10 +59,6 @@ STRUCTURES = {
               KIND_LATCH_IMM),
 }
 
-_LATER = ("is drawn by a later slice of the PyTorch port (the timing "
-          "scoreboard and the other O3 structures); this slice ports "
-          "regfile only")
-
 
 class Fault(NamedTuple):
     """A batch of trials' fault coordinates: 1-D tensors of one length B
@@ -90,103 +91,6 @@ def null_fault(device) -> Fault:
                  shadow_u=torch.ones(1, dtype=torch.float32, device=device))
 
 
-# --- nested config declarations (models/fupool.py, models/timing.py) ------
-
-class FUDesc(ConfigObject):
-    """One functional-unit type (``shrewd_tpu/models/fupool.py:41``)."""
-
-    count = Param(int, 1, "number of units of this type")
-    op_lat = Param(int, 1, "operation latency in cycles")
-    pipelined = Param(bool, True, "freed next cycle if true, else busy "
-                      "for op_lat cycles (reference OpDesc.pipelined)")
-    capabilities = VectorParam(int, [], "OpClass codes executed")
-    approx_capabilities = VectorParam(
-        int, [], "OpClass codes checkable approximately as a shadow")
-
-
-class IntALU(FUDesc):
-    count = Param(int, 6, "number of units of this type")
-    capabilities = VectorParam(int, [U.OC_INT_ALU], "OpClass codes executed")
-    approx_capabilities = VectorParam(
-        int, [U.OC_FP_ALU, U.OC_FP_MULT],
-        "OpClass codes checkable approximately")
-
-
-class IntMultDiv(FUDesc):
-    count = Param(int, 2, "number of units of this type")
-    op_lat = Param(int, 3, "operation latency in cycles")
-    capabilities = VectorParam(int, [U.OC_INT_MULT], "OpClass codes executed")
-
-
-class FP_ALU(FUDesc):
-    count = Param(int, 4, "number of units of this type")
-    op_lat = Param(int, 2, "operation latency in cycles")
-    capabilities = VectorParam(int, [U.OC_FP_ALU], "OpClass codes executed")
-    approx_capabilities = VectorParam(
-        int, [U.OC_INT_ALU], "OpClass codes checkable approximately")
-
-
-class FP_MultDiv(FUDesc):
-    count = Param(int, 2, "number of units of this type")
-    op_lat = Param(int, 4, "operation latency in cycles")
-    capabilities = VectorParam(int, [U.OC_FP_MULT],
-                               "OpClass codes executed")
-    approx_capabilities = VectorParam(
-        int, [U.OC_INT_MULT], "OpClass codes checkable approximately")
-
-
-class RdWrPort(FUDesc):
-    count = Param(int, 4, "number of units of this type")
-    capabilities = VectorParam(int, [U.OC_MEM_READ, U.OC_MEM_WRITE],
-                               "OpClass codes executed")
-
-
-class FUPoolConfig(ConfigObject):
-    """The issue-stage FU pool (``shrewd_tpu/models/fupool.py:119``)."""
-
-    int_alu = Child(IntALU)
-    int_mult = Child(IntMultDiv)
-    fp_alu = Child(FP_ALU)
-    fp_mult = Child(FP_MultDiv)
-    mem_port = Child(RdWrPort)
-    shadow_eligible = VectorParam(
-        int, [U.OC_INT_ALU, U.OC_INT_MULT, U.OC_FP_ALU, U.OC_FP_MULT],
-        "OpClasses that request shadow re-execution when issued")
-    approx_coverage = Param(
-        float, 1.0, "detection probability when the shadow runs on an "
-        "approximate-capability unit (1.0 = approx check is exact)")
-
-
-class TimingConfig(ConfigObject):
-    """Pipeline widths and latencies (``shrewd_tpu/models/timing.py:47``)."""
-
-    dispatch_width = Param(int, 8, "µops entering the ROB per cycle")
-    issue_width = Param(int, 8, "µops starting execution per cycle")
-    commit_width = Param(int, 8, "µops retiring per cycle")
-    rob_size = Param(int, 192, "reorder-buffer capacity")
-    iq_size = Param(int, 64, "issue-queue capacity")
-    lsq_size = Param(int, 32, "load/store-queue capacity")
-    op_latency = VectorParam(int, [1, 3, 4, 1, 1, 2, 4],
-                             "result latency per OpClass")
-    div_latency = Param(int, 20, "integer divide/remainder latency")
-    fdiv_latency = Param(int, 12, "FDIV latency")
-    bpred = Param(str, "tournament", "branch predictor model",
-                  check=lambda s: s in ("none", "bimodal", "tournament"))
-    bpred_bits = Param(int, 12, "log2 of the bimodal counter-table size")
-    local_bits = Param(int, 11, "log2 local predictor/history-table size")
-    global_bits = Param(int, 13, "log2 global/choice predictor size")
-    redirect_penalty = Param(int, 6, "front-end refill cycles after a "
-                             "mispredicted branch resolves")
-    taken_fetch_break = Param(bool, True, "a taken branch ends its "
-                              "dispatch group (fetch-group break)")
-    dcache = Param(str, "classic", "'none' or 'classic' L1D model",
-                   check=lambda s: s in ("none", "classic"))
-    dcache_sets = Param(int, 64, "L1D sets")
-    dcache_ways = Param(int, 8, "L1D associativity")
-    dcache_line_words = Param(int, 16, "32-bit words per 64B line")
-    dcache_miss_latency = Param(int, 94, "load miss-to-use cycles")
-
-
 class O3Config(ConfigObject):
     """Machine-model knobs, param for param the reference's
     (``shrewd_tpu/models/o3.py:102-190``).
@@ -216,8 +120,10 @@ class O3Config(ConfigObject):
                                   "n*nphys*4 fits this budget, else run "
                                   "the per-batch setup scan")
     escape_budget = Param(int, 256,
-                          "in-graph exact-resolution capacity of the "
-                          "budgeted device path (a later slice)")
+                          "exact-resolution capacity of the budgeted path "
+                          "(ops/trial.py run_keys_device): up to this many "
+                          "escaped/overflowed lanes per call are re-run "
+                          "dense, lanes beyond it count as SDC; 0 disables")
     pallas = Param(str, "auto", check=lambda s: s in ("auto", "on", "off"))
     pallas_b_tile = Param(int, 1024,
                           check=lambda v: v >= 128 and v % 128 == 0)
@@ -240,44 +146,147 @@ class O3Config(ConfigObject):
     timing_cfg = Child(TimingConfig)
 
 
-def compute_shadow_cov(opclass, cfg: O3Config):
-    """Per-µop shadow detection coverage → (float32[n], None).
+def compute_shadow_cov(opclass, cfg: O3Config, **schedule):
+    """Per-µop shadow detection coverage → (float32[n], FUPoolModel | None).
 
-    ``shadow_model="coverage"`` only: the per-OpClass probability gathered
-    per µop (zero everywhere when SHREWD is off)."""
+    The FUPoolModel is returned (structural model only) so callers can read
+    its per-OpClass availability counters.  ``schedule`` kwargs
+    (issue_cycle, busy_cycles, approx_busy_cycles, phantom_opclass,
+    phantom_cycle) drive the structural model with a real issue schedule and
+    wrong-path contention — TrialKernel passes the scoreboard's when
+    ``timing="scoreboard"``."""
     opclass = np.asarray(opclass, dtype=np.int32)
     if not cfg.enable_shrewd:
         return np.zeros(opclass.shape[0], dtype=np.float32), None
     if cfg.shadow_model == "fupool":
-        raise NotImplementedError(
-            "shadow_model='fupool' (the structural FU-pool model) comes "
-            "with a later slice of the PyTorch port")
+        m = FUPoolModel(opclass, cfg.issue_width, cfg.fu_pool,
+                        cfg.priority_to_shadow, **schedule)
+        return m.coverage(), m
     return np.asarray(cfg.shadow_coverage, dtype=np.float32)[opclass], None
 
 
 class FaultSampler:
     """Draws fault batches for one (trace, structure) pair from per-trial
-    keys, exactly as the reference's ``FaultSampler.sample``."""
+    keys, exactly as the reference's ``FaultSampler.sample`` under vmap.
+    The µop index tables (mem-op positions for LSQ faults) and the
+    residency table are built on the host once."""
 
-    def __init__(self, trace: Trace, structure: str, cfg: O3Config):
+    def __init__(self, trace: Trace, structure: str, cfg: O3Config,
+                 scoreboard=None):
         if structure not in STRUCTURES:
             raise KeyError(f"unknown structure {structure!r} "
                            f"(known: {sorted(STRUCTURES)})")
-        if structure != "regfile":
-            raise NotImplementedError(f"structure {structure!r} {_LATER}")
+        if structure == "latch":
+            raise ValueError("latch faults are drawn by "
+                             "models.minor.MinorFaultSampler "
+                             "(TrialKernel.sampler dispatches there)")
         self.structure = structure
         self.cfg = cfg
         self.n = trace.n
         self.nphys = trace.nphys
+        self.idx_bits = int(np.log2(trace.nphys))
+        self.rob_size = min(cfg.rob_size, self.n)
+
+        mem_idx = np.nonzero(U.is_mem(trace.opcode))[0]
+        store_idx = np.nonzero(U.is_store(trace.opcode))[0]
+        # degenerate traces: point at µop 0 (the fault lands on a non-mem
+        # µop and is architecturally masked: "the LSQ is empty")
+        self.mem_idx = (mem_idx if mem_idx.size
+                        else np.zeros(1, np.int64)).astype(np.int32)
+        self.store_idx = (store_idx if store_idx.size
+                          else np.zeros(1, np.int64)).astype(np.int32)
+        self.store_mask = np.asarray(U.is_store(trace.opcode), bool)
+        self._dev: dict = {}
+
+        self._res: ResidencySampler | None = None
+        if cfg.timing == "scoreboard" and structure in ("rob", "iq", "lsq",
+                                                        "fu"):
+            # the scoreboard is per-(trace, timing_cfg); TrialKernel passes
+            # its cached one so four samplers don't redo the host walk
+            sb = scoreboard if scoreboard is not None else \
+                compute_scoreboard(trace, cfg.timing_cfg)
+            mem_mask = np.asarray(U.is_mem(trace.opcode))
+            start, end = sb.occupancy(structure,
+                                      mem_mask if structure == "lsq"
+                                      else None)
+            # wrong-path entries (bpred model) add squash-masked strike
+            # cross-section — drawn as the sentinel entry n
+            self._res = ResidencySampler(
+                start, end, squashed_mass=sb.wrongpath_mass(structure))
+
+    def _tables(self, device: torch.device):
+        """(mem_idx, store_idx, store_mask) on ``device``, uploaded once."""
+        if device not in self._dev:
+            self._dev[device] = tuple(
+                torch.as_tensor(a, device=device)
+                for a in (self.mem_idx, self.store_idx, self.store_mask))
+        return self._dev[device]
 
     def sample_batch(self, keys: torch.Tensor) -> Fault:
-        """(B, 2) keys → a Fault batch on the keys' device.  Regfile: the
-        register array is fully resident, so (entry, cycle) is uniform."""
+        """(B, 2) keys → a Fault batch on the keys' device."""
         sub = prng.split(keys, 5)            # kc, ke, kb, kk, ks
-        cycle = prng.randint(sub[:, 0], 0, self.n)
+        kc, ke, kb, kk = (sub[:, j] for j in range(4))
+        cycle = prng.randint(kc, 0, self.n)
         shadow_u = prng.uniform(sub[:, 4])
-        entry = prng.randint(sub[:, 1], 0, self.nphys)
-        bit = prng.randint(sub[:, 2], 0, 32)
-        kind = torch.full_like(cycle, KIND_REGFILE)
+
+        def const(kind):
+            return torch.full_like(cycle, kind)
+
+        if self.structure == "regfile":
+            # the register array is fully resident at all times: uniform
+            # over (entry, cycle) is the physically correct draw
+            entry = prng.randint(ke, 0, self.nphys)
+            bit = prng.randint(kb, 0, 32)
+            kind = const(KIND_REGFILE)
+        elif self.structure == "fu":
+            if self._res is not None:
+                # FU occupancy = issue→writeback: a 20-cycle divide
+                # presents 20× the strike cross-section of an ALU op
+                entry, cycle = self._res.sample(ke)
+            else:
+                entry = cycle                # fault at execute of µop cycle
+            bit = prng.randint(kb, 0, 32)
+            kind = const(KIND_FU)
+        elif self.structure == "rob":
+            entry, cycle = self._resident(ke, cycle)
+            bit = prng.randint(kb, 0, self.idx_bits)
+            kind = const(KIND_ROB_DST)
+        elif self.structure == "iq":
+            entry, cycle = self._resident(ke, cycle)
+            bit = prng.randint(kb, 0, self.idx_bits)
+            kind = torch.where(prng.bernoulli(kk), KIND_IQ_SRC1,
+                               KIND_IQ_SRC2).to(torch.int32)
+        else:  # lsq
+            mem_idx, store_idx, store_mask = self._tables(keys.device)
+            which = prng.bernoulli(kk)       # addr vs data field
+            if self._res is not None:
+                # residency-weighted over mem µops (non-mem intervals carry
+                # zero mass); the data field exists only on stores, and
+                # the sentinel entry n reads the clamped store mask
+                entry, cycle = self._res.sample(ke)
+                is_st = store_mask[entry.to(torch.int64).clamp(0,
+                                                               self.n - 1)]
+                kind = torch.where(which & is_st, KIND_LSQ_DATA,
+                                   KIND_LSQ_ADDR).to(torch.int32)
+            else:
+                # uniform over mem µops; both indices come from the same
+                # key ke, over different spans, as in the reference
+                i_mem = prng.randint(ke, 0, self.mem_idx.shape[0])
+                i_st = prng.randint(ke, 0, self.store_idx.shape[0])
+                entry = torch.where(which, mem_idx[i_mem.to(torch.int64)],
+                                    store_idx[i_st.to(torch.int64)])
+                kind = torch.where(which, KIND_LSQ_ADDR,
+                                   KIND_LSQ_DATA).to(torch.int32)
+            bit = prng.randint(kb, 0, 32)
         return Fault(kind=kind, cycle=cycle, entry=entry, bit=bit,
                      shadow_u=shadow_u)
+
+    def _resident(self, key: torch.Tensor, cycle: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """A µop resident in the ROB/IQ at the struck cycle: residency-mass
+        weighted under the scoreboard, else the 1-IPC proxy (index in
+        [cycle, cycle+rob_size), clamped to the window)."""
+        if self._res is not None:
+            return self._res.sample(key)
+        off = prng.randint(key, 0, self.rob_size)
+        return torch.clamp(cycle + off, max=self.n - 1), cycle

@@ -1,9 +1,10 @@
 """Trial batches: keys → faults → fast pass → exact resolution → tally.
 
-Port of ``shrewd_tpu/ops/trial.py`` for the regfile slice.  One
-``TrialKernel`` binds a trace window, the machine config and a device; its
-golden run and golden streams are recorded on first use.
-``run_keys(keys, "regfile")`` is the campaign unit:
+Port of ``shrewd_tpu/ops/trial.py``.  One ``TrialKernel`` binds a trace
+window, the machine config (with SHREWD's structural shadow-FU model when
+``shadow_model="fupool"``) and a device; its golden run and golden streams
+are recorded on first use.  ``run_keys(keys, structure)`` is the campaign
+unit, for every structure of ``models/o3.py STRUCTURES``:
 
 - ``replay_kernel="dense"``: every lane through the dense scan;
 - ``"taint"``: the deviation-set fast pass, unresolved lanes count as SDC;
@@ -11,12 +12,16 @@ golden run and golden streams are recorded on first use.
   for lanes that escaped on a load and the dense scan for sets that
   overflowed — outcomes equal the dense path's.
 
+``run_keys_device`` / ``run_keys_stratified`` are the campaign loop's
+budgeted path (the reference's in-graph resolution): the first
+``escape_budget`` unresolved lanes, in index order, are re-run dense and
+the rest count as SDC — a different tally from ``run_keys`` once a batch
+has more escapes than the budget.
+
 The fast pass goes through ``ops/taint_cuda.py taint_fast_cuda``, which
 launches the Hopper kernel for CUDA tensors and runs its plain version for
 CPU tensors: the kernel's device alone decides.  The config's ``pallas*``
-params are not read.  Not in this slice: the budgeted in-graph path
-(``run_keys_device`` / ``_outcomes_device``), the campaign loop, memmaps
-and the structures other than regfile.
+params are not read.  Not in the port yet: memmaps.
 """
 
 from __future__ import annotations
@@ -26,8 +31,13 @@ import torch
 
 from shrewd_tpu_torch import native
 from shrewd_tpu_torch.isa import uops as U
+from shrewd_tpu_torch.models.minor import MinorFaultSampler
 from shrewd_tpu_torch.models.o3 import (Fault, FaultSampler, O3Config,
                                         compute_shadow_cov, null_fault)
+from shrewd_tpu_torch.models.timing import (approx_shadow_busy,
+                                            compute_scoreboard,
+                                            nonpipelined_busy,
+                                            wrongpath_phantoms)
 from shrewd_tpu_torch.ops import classify as C
 from shrewd_tpu_torch.ops.replay import ReplayResult, TraceArrays, replay
 from shrewd_tpu_torch.ops.taint import (TaintResult, fault_setup,
@@ -37,17 +47,20 @@ from shrewd_tpu_torch.ops.taint_cuda import pack_stream, taint_fast_cuda
 from shrewd_tpu_torch.trace.format import Trace
 from shrewd_tpu_torch.utils.device import resolve as resolve_device
 
-# strata count for the post-stratified tally: 8 cycle octiles for regfile
+# strata count for the post-stratified tally: the 7 OpClasses and 8 cycle
+# octiles
 N_STRATA = 8
 
 
 class TrialKernel:
     def __init__(self, trace: Trace, cfg: O3Config | None = None,
-                 device=None):
-        """``device=None`` means the CUDA card; it raises when there is
-        none.  Pass ``device="cpu"`` to run on the CPU."""
+                 minor_cfg=None, device=None):
+        """``minor_cfg`` (``models.minor.MinorConfig``) shapes latch
+        faults.  ``device=None`` means the CUDA card; it raises when there
+        is none.  Pass ``device="cpu"`` to run on the CPU."""
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else O3Config()
+        self.minor_cfg = minor_cfg
         self.trace = trace
         self.tr = TraceArrays.from_trace(trace, self.device)
         self.init_reg = torch.as_tensor(trace.init_reg.astype(np.int64),
@@ -55,7 +68,21 @@ class TrialKernel:
         self.init_mem = torch.as_tensor(trace.init_mem.astype(np.int64),
                                         device=self.device)
         opclass = U.opclass_of(trace.opcode)
-        cov, _ = compute_shadow_cov(opclass, self.cfg)
+        # With scoreboard timing the structural FU-pool model contends
+        # under the scoreboard's issue schedule and wrong-path phantoms,
+        # as the reference's; the scoreboard is shared with the samplers.
+        self._scoreboard = None
+        sched = {}
+        if (self.cfg.shadow_model == "fupool" and self.cfg.enable_shrewd
+                and self.scoreboard is not None):
+            tcfg = self.cfg.timing_cfg
+            ph_oc, ph_cyc = wrongpath_phantoms(trace, self.scoreboard, tcfg)
+            sched = dict(
+                issue_cycle=self.scoreboard.issue,
+                busy_cycles=nonpipelined_busy(trace.opcode, tcfg),
+                approx_busy_cycles=approx_shadow_busy(trace.opcode, tcfg),
+                phantom_opclass=ph_oc, phantom_cycle=ph_cyc)
+        cov, self.fu_model = compute_shadow_cov(opclass, self.cfg, **sched)
         self.shadow_cov = torch.as_tensor(cov, device=self.device)
         self._opclass = torch.as_tensor(opclass.astype(np.int64),
                                         device=self.device)
@@ -69,6 +96,21 @@ class TrialKernel:
         # taint observability: escape counts feed campaign stats
         self.escapes = 0
         self.taint_trials = 0
+
+    def with_shrewd(self, enable: bool | None = None,
+                    priority_to_shadow: bool | None = None
+                    ) -> "TrialKernel":
+        """Runtime SHREWD toggles, functional-style: the reference's
+        ``setEnableShrewd`` / ``setPriorityToShadow`` setters
+        (``cpu/o3/cpu.hh:298-302``) flip them mid-run; here a fresh kernel
+        on the same device is returned instead of mutating this one."""
+        cfg = type(self.cfg).from_dict(self.cfg.to_dict())
+        if enable is not None:
+            cfg.enable_shrewd = enable
+        if priority_to_shadow is not None:
+            cfg.priority_to_shadow = priority_to_shadow
+        return TrialKernel(self.trace, cfg, self.minor_cfg,
+                           device=self.device)
 
     # --- dense path ---------------------------------------------------------
 
@@ -92,15 +134,40 @@ class TrialKernel:
 
     # --- sampling -----------------------------------------------------------
 
-    def sampler(self, structure: str) -> FaultSampler:
+    @property
+    def scoreboard(self):
+        """The window's scoreboard under ``timing="scoreboard"`` (computed
+        on first use, then shared by the FU-pool schedule and the
+        samplers); None under the 1-IPC proxy."""
+        if self._scoreboard is None and self.cfg.timing == "scoreboard":
+            self._scoreboard = compute_scoreboard(self.trace,
+                                                  self.cfg.timing_cfg)
+        return self._scoreboard
+
+    def sampler(self, structure: str):
+        """The structure's sampler: ``MinorFaultSampler`` for latch, else a
+        ``FaultSampler``; regfile draws need no scoreboard."""
         if structure not in self._samplers:
-            self._samplers[structure] = FaultSampler(self.trace, structure,
-                                                     self.cfg)
+            if structure == "latch":
+                sampler = MinorFaultSampler(self.trace, self.minor_cfg)
+            elif structure == "regfile":
+                sampler = FaultSampler(self.trace, structure, self.cfg)
+            else:
+                sampler = FaultSampler(self.trace, structure, self.cfg,
+                                       scoreboard=self.scoreboard)
+            self._samplers[structure] = sampler
         return self._samplers[structure]
 
     def sample_batch(self, keys: torch.Tensor, structure: str) -> Fault:
         """(B, 2) keys → the Fault batch on this kernel's device."""
         return self.sampler(structure).sample_batch(keys.to(self.device))
+
+    def outcomes_from_keys(self, keys: torch.Tensor, structure: str
+                           ) -> torch.Tensor:
+        """Per-trial keys → outcome classes int32[B] on this kernel's
+        device, through the dense scan (the reference's campaign
+        protocol)."""
+        return self.run_batch(self.sample_batch(keys, structure))
 
     # --- deviation-set fast path --------------------------------------------
 
@@ -226,9 +293,57 @@ class TrialKernel:
         return torch.clamp(self._opclass[entry.to(self._opclass.device)],
                            0, N_STRATA - 1)
 
+    def _outcomes_device(self, keys: torch.Tensor, structure: str):
+        """Keys → (outcomes int32[B], faults, n_unresolved) on this
+        kernel's device: the core of the budgeted tallies.  The fast pass
+        runs on every lane; the first ``cfg.escape_budget`` escaped or
+        overflowed lanes, in index order, are re-run through the dense
+        scan and written back, and lanes beyond the budget count as SDC.
+        Only the picked lanes are re-run, so no filler lane is written
+        (the reference pads its fixed-size pick with an out-of-range index
+        that its scatter drops)."""
+        faults = self.sample_batch(keys, structure)
+        if self.cfg.replay_kernel == "dense":
+            return (self.run_batch(faults), faults,
+                    torch.zeros((), dtype=torch.int32))
+        res = self.taint_fast(faults, may_latch=structure == "latch")
+        unresolved = res.escaped | res.overflow
+        n_unres = unresolved.sum().to(torch.int32).cpu()
+        out = torch.where(unresolved, C.OUTCOME_SDC,
+                          res.outcome).to(torch.int32)
+        budget = min(self.cfg.escape_budget, int(keys.shape[0]))
+        if self.cfg.replay_kernel == "hybrid" and budget:
+            idx = torch.nonzero(unresolved).flatten()[:budget]
+            if idx.numel():
+                out[idx] = self.run_batch(faults.index(idx))
+        return out, faults, n_unres
+
+    def run_keys_device(self, keys: torch.Tensor, structure: str
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Keys → (tally int32[N_OUTCOMES], n_unresolved), both on the
+        CPU; see ``_outcomes_device``."""
+        out, _faults, n_unres = self._outcomes_device(keys, structure)
+        return C.tally(out).cpu(), n_unres
+
+    def run_keys_stratified(self, keys: torch.Tensor, structure: str
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Keys → ((N_STRATA, N_OUTCOMES) tally, n_unresolved), both on
+        the CPU; the same outcomes as ``run_keys_device`` (summing over
+        strata gives its tally)."""
+        out, faults, n_unres = self._outcomes_device(keys, structure)
+        strata = self.strata_of(faults, structure)
+        return C.tally_stratified(out, strata, N_STRATA).cpu(), n_unres
+
+    def run_keys_traceable(self, keys: torch.Tensor, structure: str
+                           ) -> torch.Tensor:
+        """Keys → tally through the budgeted path, for any
+        ``replay_kernel`` (the reference's name for it)."""
+        return self.run_keys_device(keys, structure)[0]
+
     def run_keys(self, keys: torch.Tensor, structure: str) -> torch.Tensor:
         """Per-trial keys → outcome tally int32[N_OUTCOMES] (on the CPU).
-        "taint" counts unresolved lanes as SDC; "hybrid" resolves them."""
+        "taint" counts unresolved lanes as SDC; "hybrid" resolves them
+        all, whatever their number."""
         mode = self.cfg.replay_kernel
         faults = self.sample_batch(keys, structure)
         if mode == "dense":

@@ -127,6 +127,12 @@ def uniform(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     return fbits.to(torch.int32).view(torch.float32) - 1.0
 
 
+def bernoulli(key: torch.Tensor, p: float = 0.5,
+              shape: tuple = ()) -> torch.Tensor:
+    """``jax.random.bernoulli``: ``uniform(key) < p`` in float32 → bool."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
 # --- campaign key derivation (shrewd_tpu/utils/prng.py:21-55) -------------
 
 def campaign_key(seed: int, device=None) -> torch.Tensor:

@@ -468,3 +468,77 @@ def test_hit_counts_equal_an_independent_count(kernel, k):
     want = hit_counts(args[0], args[1], faults, before, alive)
     assert torch.equal(counts.to(torch.int64), want)
     assert bool((want > 0).any(1).all())
+
+
+# --- the O3 structures and the campaign loop ---------------------------------
+
+STRUCTS = ("regfile", "fu", "rob", "iq", "lsq", "latch")
+
+
+def _fupool_pair(cuda, **kw):
+    """The same window and fupool config as a kernel on the card and one on
+    the CPU."""
+    t = native.generate_trace(seed=6, n=448, nphys=64, mem_words=1024,
+                              working_set_words=256)
+    cfg = O3Config(shadow_model="fupool", **kw)
+    return (TrialKernel(t, cfg, device=cuda),
+            TrialKernel(t, O3Config.from_dict(cfg.to_dict()), device="cpu"))
+
+
+def test_residency_sampler_on_card_equals_cpu(cuda):
+    from shrewd_tpu_torch.models.timing import ResidencySampler
+    rng = np.random.default_rng(3)
+    start = rng.integers(0, 1000, 500)
+    sampler = ResidencySampler(start, start + rng.integers(0, 1 << 16, 500),
+                               squashed_mass=1 << 20)
+    keys = prng.trial_keys(prng.campaign_key(5, "cpu"), 8192)
+    got = sampler.sample(keys.to(cuda))
+    want = sampler.sample(keys)
+    assert got[0].device.type == "cuda"
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool((want[0] == 500).any())
+
+
+@pytest.mark.parametrize("structure", STRUCTS)
+def test_structure_run_keys_on_card_equals_cpu(cuda, structure):
+    """Faults drawn on the card equal the CPU's; K1 holds against its plain
+    version on them (sentinel and bubble lanes included) and runs once per
+    ``run_keys``, whose tally equals the CPU's."""
+    card, cpu = _fupool_pair(cuda)
+    keys = prng.trial_keys(prng.campaign_key(7, "cpu"), 1024)
+    faults = card.sample_batch(keys.to(cuda), structure)
+    for g, w in zip(faults, cpu.sample_batch(keys, structure)):
+        assert torch.equal(g.cpu(), w)
+    got, ref = _both(card, faults, 16, structure == "latch")
+    _assert_equal(got, ref)
+    before = taint_fast_cuda.launches
+    tally = card.run_keys(keys.to(cuda), structure)
+    assert taint_fast_cuda.launches == before + 1
+    assert torch.equal(tally, cpu.run_keys(keys, structure))
+    assert card.escapes == cpu.escapes
+
+
+def test_budgeted_path_on_card_equals_cpu(cuda):
+    card, cpu = _fupool_pair(cuda, escape_budget=8)
+    keys = prng.trial_keys(prng.campaign_key(8, "cpu"), 1024)
+    for s in ("fu", "lsq"):
+        got, n = card.run_keys_stratified(keys.to(cuda), s)
+        want, n_cpu = cpu.run_keys_stratified(keys, s)
+        assert torch.equal(got, want) and int(n) == int(n_cpu) > 8
+
+
+def test_run_until_ci_on_card_equals_cpu(cuda):
+    from shrewd_tpu_torch.parallel import ShardedCampaign, run_until_ci
+    card, cpu = _fupool_pair(cuda)
+    kw = dict(seed=0, simpoint_id=0, structure_id=1, batch_size=256,
+              target_halfwidth=0.03, min_trials=512)
+    got = run_until_ci(ShardedCampaign(card, None, "fu", stratify=True),
+                       **kw)
+    want = run_until_ci(ShardedCampaign(cpu, None, "fu", stratify=True),
+                        **kw)
+    assert got.converged and got.batches >= 2
+    np.testing.assert_array_equal(got.tallies, want.tallies)
+    np.testing.assert_array_equal(got.strata_tallies, want.strata_tallies)
+    assert (got.trials, got.batches) == (want.trials, want.batches)
+    assert tuple(got.avf_interval) == tuple(want.avf_interval)

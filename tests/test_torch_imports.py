@@ -1,6 +1,7 @@
 """The port stands alone: no jax, nothing of ``shrewd_tpu``, and entry
 points that run on the card unless the caller asks for the CPU.  The no-jax
-subprocess drives the trial path and the chunked path on both engines."""
+subprocess drives the trial path, the chunked path on both engines, every
+O3 structure with the FU-pool model and the campaign loop."""
 
 import os
 import shutil
@@ -36,6 +37,18 @@ for engine in ("taint", "exact"):
     out = ChunkedCampaign(TrialKernel(t, device="cpu"), chunk=24,
                           engine=engine).outcomes_from_keys(keys, "regfile")
     assert out.shape == (32,), out
+import shrewd_tpu_torch.models.fupool, shrewd_tpu_torch.models.minor
+import shrewd_tpu_torch.models.timing
+import shrewd_tpu_torch.parallel.campaign, shrewd_tpu_torch.parallel.stopping
+from shrewd_tpu_torch.models.o3 import O3Config
+from shrewd_tpu_torch.parallel import ShardedCampaign, run_until_ci
+k = TrialKernel(t, O3Config(shadow_model="fupool"), device="cpu")
+for s in ("fu", "rob", "iq", "lsq", "latch"):
+    assert int(k.run_keys(keys, s).sum()) == 32, s
+r = run_until_ci(ShardedCampaign(k, None, "fu", stratify=True), seed=0,
+                 simpoint_id=0, structure_id=1, batch_size=32,
+                 max_trials=64)
+assert r.trials == 64, r
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded
