@@ -26,8 +26,9 @@ JAX.  Phases, each fatal:
    "regfile")``, with the kernel's launch count zeroed just before it: the
    tally sums to the batch, the first 4096 keys give the JAX reference's
    pinned tally, and 2048 outcomes equal the serial C++ oracle's;
-6. timings with CUDA events (median of 5 after a warm-up; K1's plain
-   version, a host loop of seconds, once after it) beside the card's
+6. timings with CUDA events (median of 5 after a warm-up; the host
+   loops, row pass, dense re-run and ``run_keys``, median of 3, the last
+   warmed by phase 5; K1's plain version once after it) beside the card's
    name and power limit; K1's bound two ways (the full body on every
    step from each landing, and the function's own need from the
    kernel's hit counts: the kernels line's) and its longest walk;
@@ -54,7 +55,8 @@ JAX.  Phases, each fatal:
    outcomes = the serial C++ oracle, (iii) the 64 taint outcomes = the JAX
    reference's, pinned, (iv) taint = exact at S = 15000 with
    ``carry_horizon=2``, some lanes carried;
-10. the chunked path's timings (median of 3 after a warm-up): trials/s of
+10. the chunked path's timings (median of 3 after a warm-up, phase 9's
+    for ``outcomes_from_keys``): trials/s of
     ``outcomes_from_keys``, K2 on each of the main path's waves and its
     plain version (timed once, in (a)), the chunk record, the setup
     gathers, the exact fallback and the preprocessing; K2's bound over
@@ -80,7 +82,23 @@ JAX.  Phases, each fatal:
     through the ``chunked=`` route on the chunked window at chunk 65536
     (K2's count zeroed before it): one K2 launch per fast wave, no call of
     the plain chunk scan, the tally equals the C++ oracle's, and K2 equals
-    its plain version on the route's first wave.
+    its plain version on the route's first wave;
+13. the campaign CLI, in-process (``shrewd_tpu_torch.main.main``): the
+    flagship window saved with ``trace.format.save`` and a plan JSON
+    (``TraceFileSpec``, regfile and fu, batch 4096, ``O3Config(
+    shadow_model="fupool")``, stratified, integrity at its defaults);
+    (a) ``run`` at target 0.01 gives the JAX reference's ``PIN_CI``, with
+    the host syncs counted (``torch.cuda.set_sync_debug_mode``); (b) at
+    target 0.005 ``run`` serial, ``--sync-every 4 --pipeline-depth 2`` and
+    ``--until-ci`` each give ``PIN_CLI``, the until-CI run consuming the
+    serial run's batches; (c) a serial run with ``checkpoint_every=1``
+    drained after its third batch and finished by ``resume`` gives
+    ``PIN_CLI`` too.  Every run: rc 0, every batch on the device tier,
+    ``resilience.tier_trials`` 0 for cpu and oracle, the integrity
+    counters clean, K1's launches exactly the batches plus two per canary
+    run plus one per audited batch (told apart by their lane counts), no
+    call of K1's plain version on card tensors; K1 held against its plain
+    version on the first regfile and fu batch launch.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -112,6 +130,8 @@ PIN_TALLY = [3095, 450, 551, 0]
 N_ORACLE = 2048
 N_MIXED = 16384
 REPS = 5                        # phase 6: median of 5
+REPS_HOST = 3                   # phase 6's host-driven loops (row pass,
+                                # dense re-run, run_keys): seconds each
 REPS_CHUNKED = 3                # phase 10: each run holds a 65536-step
                                 # exact fallback of several seconds
 MIXED_COVERAGE = 0.5            # shadow coverage of batches (b) and (c)
@@ -204,6 +224,22 @@ PIN_CI = {
                       0.5619039430030799)),
 }
 N_CHUNK_FU = 512                # phase 12: the chunked route, fu keys
+# phase 13, the campaign CLI: the JAX reference's results at target 0.005
+# for the same campaign (batch 4096, stratified, fupool; the orchestrator
+# derives its keys as run_until_ci does, so these are run_until_ci's;
+# tests/test_torch_orchestrator_pins.py recomputes regfile's, and fu
+# converges in its first batch, as at 0.01)
+CLI_TARGET = 0.005
+PIN_CLI = {
+    "regfile": dict(
+        tallies=[21652, 3221, 3799, 0], trials=28672, batches=7,
+        strata=[[2982, 84, 549, 0], [3037, 65, 467, 0], [3002, 103, 533, 0],
+                [2805, 204, 609, 0], [2891, 154, 469, 0],
+                [2895, 218, 448, 0], [2670, 538, 451, 0],
+                [1370, 1855, 273, 0]]),
+    "fu": {k: PIN_CI["fu"][k] for k in ("tallies", "trials", "batches",
+                                        "strata")},
+}
 
 
 def log(msg: str) -> None:
@@ -223,10 +259,11 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(torch, fn, reps: int = REPS) -> float:
+def time_ms(torch, fn, reps: int = REPS, warm: bool = True) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after one
-    warm-up run."""
-    fn()
+    warm-up run (``warm=False``: the caller has just run ``fn``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -651,11 +688,12 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
             times.append((time.monotonic() - t0) * 1e3)
         return statistics.median(times)
 
+    # phase 9's counted run was the warm-up
     del exact_log[:]
     e2e_ms = time_ms(torch, lambda: camp.outcomes_from_keys(keys, "regfile"),
-                     REPS_CHUNKED)
+                     REPS_CHUNKED, warm=False)
     # the exact fallback inside each timed run (none: 0 lanes, 0 ms)
-    fb_ms = statistics.median([x[0] * 1e3 for x in exact_log[1:]] or [0.0])
+    fb_ms = statistics.median([x[0] * 1e3 for x in exact_log] or [0.0])
     fb_lanes = exact_log[-1][1] if exact_log else 0
     k2_wave_ms = [time_ms(torch, lambda a=a, kw=kw: taint_chunk_cuda(*a, **kw),
                           REPS_CHUNKED) for a, kw, _ in main_waves]
@@ -970,6 +1008,257 @@ def structure_phases(torch, dev, marks, kernel, keys, card) -> dict:
     return {"timings": timings, "launches": launches,
             "k1_max_err": max_err, "k2_max_err": k2_err}
 
+def _read_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def cli_phase(torch, marks, card) -> dict:
+    """Phase 13, the campaign CLI on the flagship window → the timings,
+    K1's launches on each run and K1's largest difference from its plain
+    version on the runs' own batches."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan, TraceFileSpec
+    from shrewd_tpu_torch.main import main as cli
+    from shrewd_tpu_torch.models.o3 import KIND_FU, KIND_REGFILE, O3Config
+    from shrewd_tpu_torch.ops import taint_cuda, trial
+    from shrewd_tpu_torch.ops.taint_cuda import taint_fast_cuda
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.trace import format as tf
+    from shrewd_tpu_torch.utils import prng
+
+    # instrumentation: the lane count of every K1 launch (batches,
+    # canaries and audit samples differ in it), the first batch launch of
+    # each structure kept for the comparison with the plain version, and
+    # any call of the plain version on card tensors
+    sizes: list = []
+    kept: dict = {}
+    launch = trial.taint_fast_cuda
+
+    def sized(*a, **kw):
+        got = launch(*a, **kw)
+        n = int(a[3].kind.shape[0])
+        sizes.append(n)
+        kind = int(a[3].kind[0])
+        if n == CI_BATCH and kind not in kept:
+            kept[kind] = (a, {x: v for x, v in kw.items() if x != "stream"},
+                          got)
+        return got
+
+    plain_cuda = [0]
+    plain = taint_cuda.taint_fast_plain
+
+    def counted_plain(*a, **kw):
+        if a[3].kind.device.type == "cuda":
+            plain_cuda[0] += 1
+        return plain(*a, **kw)
+
+    trial.taint_fast_cuda = sized
+    taint_cuda.taint_fast_plain = counted_plain
+    timings: dict = {"card": card}
+    launches: dict = {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    trace = native.generate_trace(**FLAGSHIP)
+    npz = os.path.join(d, "flagship.npz")
+    tf.save(npz, trace, meta={"source": "native.generate_trace",
+                              **FLAGSHIP})
+
+    def plan_file(name: str, target: float, **kw) -> str:
+        plan = CampaignPlan(
+            simpoints=[TraceFileSpec(name="flagship", path=npz)],
+            structures=["regfile", "fu"], batch_size=CI_BATCH,
+            target_halfwidth=target, stratify=True,
+            machine=O3Config(shadow_model="fupool"), **kw)
+        path = os.path.join(d, name)
+        plan.dump_json(path)
+        return path
+
+    def check(tag: str, out: str, pins: dict, n_dev: int, n0: int,
+              exact: bool, mon0: dict) -> dict:
+        """The gates of one finished run, from its final checkpoint and
+        stats.json; ``n_dev`` the 4096-lane K1 launches it made, ``n0``
+        the batches believed before it and ``mon0`` the integrity
+        counters it resumed with (a resumed run)."""
+        doc = _read_json(os.path.join(out, "campaign_ckpt",
+                                      "campaign.json"))
+        stats = _read_json(os.path.join(out, "stats.json"))
+        batches = 0
+        for s, pin in pins.items():
+            st = doc["state"]["flagship"][s]
+            got = dict(tallies=st["tallies"], trials=sum(st["tallies"]),
+                       batches=st["next_batch"], strata=st["strata"])
+            if got != pin or not st["converged"]:
+                fail(f"{tag} {s}: {got} (converged {st['converged']}) != "
+                     f"JAX reference {pin}")
+            if st["tier_trials"] != [pin["trials"], 0, 0]:
+                fail(f"{tag} {s}: tier trials {st['tier_trials']}: a batch "
+                     "ran below the device tier")
+            batches += pin["batches"]
+        tiers = stats["resilience"]["tier_trials"]
+        if tiers["cpu"] or tiers["oracle"]:
+            fail(f"{tag}: resilience.tier_trials {tiers}")
+        ig = stats["integrity"]
+        bad = {k: ig[k] for k in ("canary_failures", "invariant_violations",
+                                  "audit_mismatches", "quarantined_batches")
+               if ig[k]}
+        if bad:
+            fail(f"{tag}: integrity counters {bad}")
+        mon = {k: doc["integrity"][k] - mon0.get(k, 0)
+               for k in ("canary_runs", "audit_batches")}
+        want = {CI_BATCH: n_dev, 3: mon["canary_runs"], 2: mon["canary_runs"],
+                64: mon["audit_batches"]}
+        got = {n: sizes.count(n) for n in set(sizes) | set(want)}
+        if got != want or taint_fast_cuda.launches != len(sizes):
+            fail(f"{tag}: K1 launches by lane count {got} != the batches, "
+                 f"canaries and audit samples {want} (counter "
+                 f"{taint_fast_cuda.launches})")
+        if (n_dev != batches - n0) if exact else (n_dev < batches - n0):
+            fail(f"{tag}: {n_dev} batch launches for {batches - n0} "
+                 "believed batches")
+        if plain_cuda[0]:
+            fail(f"{tag}: K1's plain version ran on card tensors")
+        return {"rc": 0, "batches": batches - n0, "k1_launches": len(sizes),
+                "k1_batch_launches": n_dev, "canary_runs": mon["canary_runs"],
+                "audit_batches": mon["audit_batches"],
+                "perf": {k: stats["perf"][k] for k in (
+                    "intervals", "super_intervals", "serial_fallbacks",
+                    "host_roundtrips_saved", "auto_sync_every",
+                    "dispatch_depth", "device_step_seconds",
+                    "device_wait_seconds")}}
+
+    def run(tag: str, argv: list, pins: dict, exact: bool = True,
+            n0: int = 0, mon0: dict | None = None,
+            syncs: bool = False) -> dict:
+        sizes.clear()
+        taint_fast_cuda.launches = 0
+        t0 = time.monotonic()
+        with warnings.catch_warnings(record=True) as caught:
+            if syncs:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rc = cli(argv)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if rc != 0:
+            fail(f"{tag}: CLI rc {rc}")
+        res = check(tag, argv[argv.index("--outdir") + 1], pins,
+                    sizes.count(CI_BATCH), n0, exact, mon0 or {})
+        # the trials this run believed (a resumed run's own batches)
+        res.update(wall_s=wall,
+                   trials_per_s=res["batches"] * CI_BATCH / wall)
+        if syncs:
+            res["host_syncs"] = sum("synchroniz" in str(w.message)
+                                    for w in caught)
+        launches[f"campaign CLI {tag}"] = res["k1_launches"]
+        timings[f"cli_{tag.replace(' ', '_')}"] = res
+        log(f"CLI {tag}: rc 0, results == JAX pins, every batch on the "
+            f"device tier, integrity clean, K1 {res['k1_launches']} "
+            f"launches = {res['k1_batch_launches']} batches + "
+            f"2 x {res['canary_runs']} canary runs + "
+            f"{res['audit_batches']} audit samples, 0 plain calls; "
+            f"{wall:.1f} s = {res['trials_per_s']:,.0f} trials/s ({card})")
+        return res
+
+    t_phase = time.monotonic()
+    pins01 = {s: {k: PIN_CI[s][k] for k in ("tallies", "trials", "batches",
+                                             "strata")}
+              for s in ("regfile", "fu")}
+    plan01 = plan_file("plan01.json", CI_TARGET)
+    plan005 = plan_file("plan005.json", CLI_TARGET)
+    # (a) target 0.01, the host syncs counted
+    a = run("(a) serial 0.01", ["run", plan01, "--outdir",
+                                os.path.join(d, "a")], pins01, syncs=True)
+    # (b) target 0.005, three ways
+    serial = run("(b) serial", ["run", plan005, "--outdir",
+                                os.path.join(d, "b0")], PIN_CLI)
+    sync = run("(b) sync-every 4", [
+        "run", plan005, "--outdir", os.path.join(d, "b1"), "--sync-every",
+        "4", "--pipeline-depth", "2"], PIN_CLI, exact=False)
+    until = run("(b) until-CI", ["run", plan005, "--outdir",
+                                 os.path.join(d, "b2"), "--until-ci"],
+                PIN_CLI)
+    if until["batches"] != serial["batches"]:
+        fail(f"until-CI consumed {until['batches']} batches, the serial "
+             f"loop {serial['batches']}")
+    if sync["perf"]["intervals"] < 1 or until["perf"]["super_intervals"] < 1:
+        fail(f"the interval or until-CI engine never ran: {sync['perf']}, "
+             f"{until['perf']}")
+    # (c) a serial run stopped after its third batch, then resumed
+    planc = plan_file("planc.json", CLI_TARGET, checkpoint_every=1)
+    sizes.clear()
+    taint_fast_cuda.launches = 0
+    orch = Orchestrator(CampaignPlan.from_dict(_read_json(planc)),
+                        outdir=os.path.join(d, "c"))
+    seen = 0
+    for ev, _ in orch.events():
+        if ev.name == "BATCH_COMPLETE":
+            seen += 1
+            if seen == 3:
+                orch.request_drain()
+        if ev.name == "PREEMPTED":
+            break
+    if not orch.preempted or seen != 3:
+        fail(f"(c): the run did not stop after its third batch ({seen})")
+    first = len(sizes)
+    if first != 3 + 3 * 3:
+        fail(f"(c): {first} K1 launches in the first 3 batches, not 3 "
+             "batches + 3 x (2 canaries + 1 audit sample)")
+    launches["campaign CLI (c) first 3 batches"] = first
+    ckpt_c = os.path.join(d, "c", "campaign_ckpt")
+    resumed = run("(c) resume", ["resume", ckpt_c, "--outdir",
+                                 os.path.join(d, "c2")], PIN_CLI, n0=3,
+                  mon0=_read_json(os.path.join(ckpt_c,
+                                               "campaign.json"))["integrity"])
+    # the host syncs of one bare batch step
+    kernel = TrialKernel(trace, O3Config(shadow_model="fupool"))
+    keys = prng.trial_keys(prng.campaign_key(0), CI_BATCH)
+    kernel.tally_on_device(keys, "regfile")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            kernel.tally_on_device(keys, "regfile")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    step_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # K1 against its plain version on the first batch launch of each
+    # structure, at the main path's shape
+    max_err = 0
+    for kind, name in ((KIND_REGFILE, "regfile"), (KIND_FU, "fu")):
+        if kind not in kept:
+            fail(f"no {CI_BATCH}-lane K1 launch of {name} was kept")
+        args, kw, got = kept[kind]
+        max_err = max(max_err, compare(torch, got, plain(*args, **kw),
+                                       f"CLI {name} batch"))
+    trial.taint_fast_cuda = launch
+    taint_cuda.taint_fast_plain = plain
+    timings["cli_host_syncs"] = {
+        "run_a": a["host_syncs"], "run_a_batches": a["batches"],
+        "per_batch_all_layers": a["host_syncs"] / a["batches"],
+        "bare_batch_step": step_syncs}
+    timings["cli_phase_s"] = time.monotonic() - t_phase
+    log(f"host syncs: {a['host_syncs']} in run (a) = "
+        f"{a['host_syncs'] / a['batches']:.1f} per batch with canaries, "
+        f"audit and checks; {step_syncs} in one bare batch step "
+        f"(tally_on_device)")
+    log(f"perf: sync-every 4 {sync['perf']}; until-CI {until['perf']}")
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"(c): stopped after 3 batches ({first} K1 launches), resumed to "
+        f"the pins; K1 == plain on the regfile and fu batch launches; "
+        f"phase 13 {timings['cli_phase_s']:.1f} s ({card})")
+    launches["campaign CLI (c) resume"] = resumed["k1_launches"]
+    marks("13 campaign CLI")
+    return {"timings": timings, "launches": launches, "k1_max_err": max_err}
+
 
 def main() -> int:
     import torch
@@ -1179,9 +1468,12 @@ def main() -> int:
     dense_lanes = flag_faults.index(torch.as_tensor(
         kernel._bucket(dense_idx if len(dense_idx) else row_idx[:1]),
         device=dev))
-    row_ms = time_ms(torch, lambda: kernel.taint_batch(row_lanes, True))
-    dense_ms = time_ms(torch, lambda: kernel.run_batch(dense_lanes))
-    e2e_ms = time_ms(torch, lambda: kernel.run_keys(keys, "regfile"))
+    row_ms = time_ms(torch, lambda: kernel.taint_batch(row_lanes, True),
+                     REPS_HOST)
+    dense_ms = time_ms(torch, lambda: kernel.run_batch(dense_lanes),
+                       REPS_HOST)
+    e2e_ms = time_ms(torch, lambda: kernel.run_keys(keys, "regfile"),
+                     REPS_HOST, warm=False)
 
     k = kw["k"]
     n, B = trace.n, N_KEYS
@@ -1231,12 +1523,16 @@ def main() -> int:
     log(json.dumps({"timings": {"card": card, **chunk_timings}}))
     paths = structure_phases(torch, dev, marks, kernel_s, keys, card)
     log(json.dumps({"timings": paths["timings"]}))
+    del kernel_s
+    cli_run = cli_phase(torch, marks, card)
+    log(json.dumps({"timings": cli_run["timings"]}))
+    paths["launches"].update(cli_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
     k2_paths = {"outcomes_from_keys regfile": k2_record["launches"], **{
         p: n for p, n in paths["launches"].items() if "chunked" in p}}
-    max_err = max(max_err, paths["k1_max_err"])
+    max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"])
     k2_err = max(k2_record["max_abs_err"], paths["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),

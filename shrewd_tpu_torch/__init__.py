@@ -8,18 +8,25 @@ nothing of ``shrewd_tpu``; ``compat`` carries the reference's inputs across.
 The paths mirror the reference's:
 
 - ``isa``    — the µop opcode/OpClass tables
-- ``trace``  — the ``Trace`` window
+- ``trace``  — the ``Trace`` window, its ``.npz`` format, the synthetic
+  workload generator
 - ``native`` — ctypes binding to the serial C++ runtime in ``csrc/``
-- ``utils``  — config objects and the threefry PRNG
-- ``models`` — the O3 fault-target model (regfile slice)
+- ``utils``  — config objects, the threefry PRNG, debug flags, probes
+- ``models`` — the O3 fault targets, the timing model, SHREWD's FU pool,
+  the in-order latches
 - ``ops``    — dense scan, deviation-set scans, the CUDA kernels, the
   trial runner ``TrialKernel``, and chunked replay (``window``,
   ``chunked.ChunkedCampaign``)
-- ``parallel`` — the trace digest that keys preprocessed windows
+- ``parallel`` — the campaign step, its interval and until-CI engines,
+  the stopping rule, the shared kernel registry
+- ``resilience``, ``integrity`` — the degradation ladder and the checked
+  dispatch (canaries, invariants, audit)
+- ``campaign``, ``stats``, ``obs``, ``sim``, ``main`` — plans, the
+  orchestrator, its stats tree, tracing, exit events and the CLI
+  (``python -m shrewd_tpu_torch run|resume``)
 
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.  The slices so far cover the regfile trial path end to
-end and SimPoint-scale chunked replay.
+``device="cpu"`` (the CLI: ``--platform cpu``).
 """
 
 __version__ = "0.1.0"

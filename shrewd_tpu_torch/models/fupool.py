@@ -450,9 +450,18 @@ class FUPoolModel:
         return cov
 
     def stats_group(self, name: str = "fupool"):
-        """The availability counters as a stats Group: it needs the stats
-        package, which a later slice of the port brings; read the counter
-        arrays (``shadow_requests`` …) or ``availability()`` meanwhile."""
-        raise NotImplementedError(
-            "FUPoolModel.stats_group needs the stats package, which comes "
-            "with a later slice of the PyTorch port")
+        """Availability counters as a stats Group (the per-OpClass counters
+        of ``inst_queue.hh:581-606`` plus ``statFuBusy``)."""
+        from shrewd_tpu_torch import stats
+        g = stats.Group(name)
+        for attr, desc in (
+                ("shadow_requests", "shadow FU requests"),
+                ("shadow_granted", "shadow granted on exact-capability unit"),
+                ("shadow_granted_approx", "shadow granted on approx unit"),
+                ("shadow_denied", "shadow denied (NoShadowFU)"),
+                ("fu_busy", "primary issue found no free unit")):
+            v = stats.Vector(attr, U.N_OPCLASSES, desc,
+                             subnames=list(U.OPCLASS_NAMES))
+            v += getattr(self, attr)
+            setattr(g, attr, v)
+        return g

@@ -305,10 +305,10 @@ class TrialKernel:
         faults = self.sample_batch(keys, structure)
         if self.cfg.replay_kernel == "dense":
             return (self.run_batch(faults), faults,
-                    torch.zeros((), dtype=torch.int32))
+                    torch.zeros((), dtype=torch.int32, device=self.device))
         res = self.taint_fast(faults, may_latch=structure == "latch")
         unresolved = res.escaped | res.overflow
-        n_unres = unresolved.sum().to(torch.int32).cpu()
+        n_unres = unresolved.sum().to(torch.int32)
         out = torch.where(unresolved, C.OUTCOME_SDC,
                           res.outcome).to(torch.int32)
         budget = min(self.cfg.escape_budget, int(keys.shape[0]))
@@ -322,17 +322,31 @@ class TrialKernel:
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         """Keys → (tally int32[N_OUTCOMES], n_unresolved), both on the
         CPU; see ``_outcomes_device``."""
-        out, _faults, n_unres = self._outcomes_device(keys, structure)
-        return C.tally(out).cpu(), n_unres
+        tally, n_unres = self.tally_on_device(keys, structure)
+        return tally.cpu(), n_unres.cpu()
 
     def run_keys_stratified(self, keys: torch.Tensor, structure: str
                             ) -> tuple[torch.Tensor, torch.Tensor]:
         """Keys → ((N_STRATA, N_OUTCOMES) tally, n_unresolved), both on
         the CPU; the same outcomes as ``run_keys_device`` (summing over
         strata gives its tally)."""
+        tally, n_unres = self.tally_on_device(keys, structure,
+                                              stratified=True)
+        return tally.cpu(), n_unres.cpu()
+
+    def tally_on_device(self, keys: torch.Tensor, structure: str,
+                        stratified: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The budgeted tally left on this kernel's device: (int32
+        (N_OUTCOMES,) tally, or (N_STRATA, N_OUTCOMES) when
+        ``stratified``, and the int32 unresolved count), for the interval
+        and until-CI steps to accumulate there; ``run_keys_device`` and
+        ``run_keys_stratified`` copy the same tensors to the host."""
         out, faults, n_unres = self._outcomes_device(keys, structure)
-        strata = self.strata_of(faults, structure)
-        return C.tally_stratified(out, strata, N_STRATA).cpu(), n_unres
+        if stratified:
+            return (C.tally_stratified(out, self.strata_of(faults, structure),
+                                       N_STRATA), n_unres)
+        return C.tally(out), n_unres
 
     def run_keys_traceable(self, keys: torch.Tensor, structure: str
                            ) -> torch.Tensor:

@@ -1,17 +1,23 @@
-"""SimPoint trace window (port of ``shrewd_tpu/trace/format.py:26-75``).
+"""SimPoint trace window (port of ``shrewd_tpu/trace/format.py``).
 
 A ``Trace`` is the recorded dynamic-µop window plus the machine state it
 starts from, struct-of-arrays with fixed shapes.  It holds numpy arrays on
 the host; ``ops.replay.TraceArrays.from_trace`` moves it to a device.
+``save`` / ``load`` write and read the reference's ``.npz`` layout (one
+file per window with a JSON metadata blob), so a window saved by either
+package loads in the other.
 """
 
 from __future__ import annotations
 
+import json
 from typing import NamedTuple
 
 import numpy as np
 
 from shrewd_tpu_torch.isa import uops as U
+
+FORMAT_VERSION = 1
 
 
 class Trace(NamedTuple):
@@ -58,3 +64,27 @@ class Trace(NamedTuple):
             raise ValueError("nphys must be a power of two")
         if self.mem_words & (self.mem_words - 1):
             raise ValueError("mem_words must be a power of two")
+
+
+def save(path, trace: Trace, meta: dict | None = None) -> None:
+    trace.validate()
+    meta = dict(meta or {})
+    meta["format_version"] = FORMAT_VERSION
+    np.savez_compressed(
+        path,
+        meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+        **{f: getattr(trace, f) for f in Trace._fields},
+    )
+
+
+def load(path) -> tuple[Trace, dict]:
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["meta"]).decode())
+        if meta.get("format_version") != FORMAT_VERSION:
+            raise ValueError(
+                f"trace format version {meta.get('format_version')} != "
+                f"{FORMAT_VERSION} (regenerate or write an upgrader, the "
+                f"cpt_upgraders analog)")
+        trace = Trace(**{f: z[f] for f in Trace._fields})
+    trace.validate()
+    return trace, meta

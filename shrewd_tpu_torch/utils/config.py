@@ -4,12 +4,14 @@ The port's copy of ``ConfigObject``, ``Param``, ``VectorParam`` and
 ``Child`` from ``shrewd_tpu/utils/config.py`` (the SimObject-param analog:
 declarative typed params, metaclass capture, ``to_dict``/``from_dict``
 round trip), so that a port config's ``to_dict()`` can be held against the
-reference's.  The unit-string param types and the ini/json dumps are not
-needed by the port yet and are left out.
+reference's, and ``dump_json``, the ``config.json`` a campaign writes.  The
+unit-string param types and the ini dump are not needed by the port yet and
+are left out.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Callable
 
 _REQUIRED = object()
@@ -150,6 +152,11 @@ class ConfigObject:
         for name, child in self._children.items():
             out[name] = child.to_dict()
         return out
+
+    def dump_json(self, path) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2, default=str)
+            f.write("\n")
 
     @classmethod
     def from_dict(cls, d: dict) -> "ConfigObject":

@@ -82,21 +82,34 @@ def test_chunked_route_matches_reference(window, mesh, structure):
 
 
 def test_campaign_refuses_what_a_later_slice_brings(window):
+    """A mesh still waits for the multi-GPU slice; the watchdog, the
+    integrity check and the dispatcher came with the orchestrator's
+    slice and are held here as working."""
+    from shrewd_tpu_torch import resilience as R
+
     _, mk = _kernels(window)
     with pytest.raises(NotImplementedError, match="mesh"):
         ShardedCampaign(mk, object(), "fu")
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        ShardedCampaign(mk, None, "fu", watchdog=object())
-    with pytest.raises(NotImplementedError, match="integrity"):
-        ShardedCampaign(mk, None, "fu", integrity_check=True)
     with pytest.raises(ValueError, match="resolution='device'"):
         ShardedCampaign(mk, None, "fu", resolution="host", stratify=True)
     with pytest.raises(ValueError, match="stratify=True"):
         ShardedCampaign(mk, None, "fu").tally_batch_stratified(
             _keys(1, 8)[1])
-    with pytest.raises(NotImplementedError, match="dispatcher"):
-        run_until_ci(ShardedCampaign(mk, None, "fu"), seed=0,
-                     simpoint_id=0, structure_id=1, dispatcher=object())
+    keys = _keys(1, 64)[1]
+    plain = ShardedCampaign(mk, None, "fu").tally_batch(keys)
+    checked = ShardedCampaign(mk, None, "fu", integrity_check=True,
+                              watchdog=R.DeviceWatchdog(timeout=60.0))
+    assert torch.equal(checked.tally_batch(keys), plain)
+    assert checked.shard_checks == 1 and checked.watchdog.dispatches == 1
+    camp = ShardedCampaign(mk, None, "fu")
+    kw = dict(seed=0, simpoint_id=0, structure_id=1, batch_size=64,
+              max_trials=128)
+    got = run_until_ci(camp, dispatcher=R.dispatcher_for_campaign(camp),
+                       **kw)
+    want = run_until_ci(camp, **kw)
+    np.testing.assert_array_equal(got.tallies, want.tallies)
+    assert got.tier_trials.tolist() == [128, 0, 0]
+    assert got.escalation_rate == 0.0
 
 
 # --- run_until_ci ----------------------------------------------------------

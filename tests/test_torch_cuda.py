@@ -542,3 +542,115 @@ def test_run_until_ci_on_card_equals_cpu(cuda):
     np.testing.assert_array_equal(got.strata_tallies, want.strata_tallies)
     assert (got.trials, got.batches) == (want.trials, want.batches)
     assert tuple(got.avf_interval) == tuple(want.avf_interval)
+
+
+# --- the campaign orchestrator ----------------------------------------------
+
+def _tiny_plan(mode: str, stratify: bool):
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan, WorkloadSpec
+    from shrewd_tpu_torch.trace.synth import WorkloadConfig
+    plan = CampaignPlan(
+        simpoints=[WorkloadSpec(name="w0", workload=WorkloadConfig(
+            n=96, nphys=32, mem_words=64, working_set_words=32, seed=7))],
+        structures=["regfile", "fu"], batch_size=32, target_halfwidth=0.08,
+        max_trials=2048, min_trials=64, stratify=stratify,
+        checkpoint_every=2)
+    plan.machine.shadow_model = "fupool"
+    plan.resilience.backoff_base = 0.0
+    plan.pipeline.sync_every = 4 if mode == "sync" else 1
+    plan.pipeline.until_ci = mode == "until"
+    return plan
+
+
+@pytest.mark.parametrize("mode", ["serial", "sync", "until"])
+@pytest.mark.parametrize("stratify", [False, True])
+def test_orchestrator_on_card_equals_cpu(cuda, tmp_path, mode, stratify):
+    """The same plan on the card and on the CPU: the same results,
+    checkpoint state and integrity document; every batch on the device
+    tier, K1 launched, its plain version never called on the card."""
+    import json
+    import os
+
+    from shrewd_tpu_torch import stats
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+
+    docs = []
+    plain_calls = []
+    orig = taint_cuda.taint_fast_plain
+
+    def counted(*a, **kw):
+        plain_calls.append(a[3].kind.device.type)
+        return orig(*a, **kw)
+
+    taint_cuda.taint_fast_plain = counted
+    try:
+        for dev in (cuda, "cpu"):
+            before = taint_fast_cuda.launches
+            orch = Orchestrator(_tiny_plan(mode, stratify),
+                                outdir=str(tmp_path / str(dev)), device=dev)
+            list(orch.events())
+            orch.checkpoint()
+            with open(os.path.join(orch.outdir, "campaign_ckpt",
+                                   "campaign.json")) as f:
+                doc = json.load(f)
+            docs.append((doc["state"], doc["integrity"],
+                         sorted((k, r.tallies.tolist(), r.trials,
+                                 tuple(r.avf_interval))
+                                for k, r in orch.results.items())))
+            if dev is cuda:
+                assert taint_fast_cuda.launches > before
+                res = stats.to_dict(orch.stats)["resilience"]
+                assert res["tier_trials"]["cpu"] == 0
+                assert res["tier_trials"]["oracle"] == 0
+                assert res["tier_trials"]["device"] > 0
+    finally:
+        taint_cuda.taint_fast_plain = orig
+    assert "cuda" not in plain_calls
+    assert docs[0] == docs[1]
+
+
+def test_interval_stays_on_the_card_until_materialized(cuda):
+    from shrewd_tpu_torch.parallel import ShardedCampaign
+    card, cpu = _fupool_pair(cuda)
+    keys = [prng.trial_keys(prng.campaign_key(20 + i, "cpu"), 512)
+            for i in range(3)]
+    camp = ShardedCampaign(card, None, "fu", stratify=True,
+                           integrity_check=True)
+    h = camp.dispatch_interval([k.to(cuda) for k in keys])
+    acc, n_unres = h.out
+    assert acc.device.type == "cuda" and n_unres.device.type == "cuda"
+    assert isinstance(h.event, torch.cuda.Event)
+    assert camp.transfers == 0
+    tally, strata = camp.materialize_interval(h)
+    assert camp.transfers == 1
+    serial = ShardedCampaign(cpu, None, "fu", stratify=True)
+    want = sum(serial.tally_batch_stratified(k).numpy().astype(np.int64)
+               for k in keys)
+    np.testing.assert_array_equal(strata, want)
+    np.testing.assert_array_equal(tally, want.sum(0))
+    h = camp.dispatch_until_ci([k.to(cuda) for k in keys], np.zeros(4), None,
+                               0, 0, 1.0, 0.95, True)
+    assert h.out[0].device.type == "cuda" and h.out[3].device.type == "cuda"
+    _, _, consumed, hw = camp.materialize_until_ci(h)
+    assert consumed == 1 and hw.shape == (1,)
+
+
+@pytest.mark.parametrize("mode", ["serial", "sync", "until"])
+def test_k1_launch_failure_raises_out_of_the_orchestrator(cuda, tmp_path,
+                                                          monkeypatch, mode):
+    """A K1 that fails to launch ends a campaign on the card with its own
+    error: the ladder has the device tier alone, so no batch moves to the
+    CPU or the host oracle, and no batch is believed."""
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.ops import trial
+
+    def broken(*a, **kw):
+        raise RuntimeError("CUDA error: the launch failed")
+
+    monkeypatch.setattr(trial, "taint_fast_cuda", broken)
+    orch = Orchestrator(_tiny_plan(mode, True), outdir=str(tmp_path),
+                        device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        list(orch.events())
+    for st in orch.state.values():
+        assert st.tier_trials.tolist() == [0, 0, 0] and st.next_batch == 0

@@ -134,8 +134,50 @@ def test_compute_shadow_cov_matches_reference(window, enable, priority,
     assert b_cov.any()
 
 
+def _stats_dumps(model, stats_mod):
+    import io
+
+    g = model.stats_group()
+    text, js = io.StringIO(), io.StringIO()
+    stats_mod.dump_text(g, text)
+    stats_mod.dump_json(g, js)
+    return text.getvalue(), js.getvalue()
+
+
 def test_stats_group_waits_for_the_stats_package(window):
-    _, mine = window
-    m = F.FUPoolModel(ref_uops.opclass_of(np.asarray(mine.opcode)))
-    with pytest.raises(NotImplementedError, match="stats package"):
-        m.stats_group()
+    """The stats package is ported now: the group of the default pool
+    dumps as the reference's."""
+    from shrewd_tpu import stats as ref_stats
+    from shrewd_tpu_torch import stats
+
+    ref, mine = window
+    oc = ref_uops.opclass_of(np.asarray(mine.opcode))
+    a, b = RF.FUPoolModel(oc), F.FUPoolModel(oc)
+    assert _stats_dumps(b, stats) == _stats_dumps(a, ref_stats)
+
+
+@pytest.mark.parametrize("priority", [False, True])
+@pytest.mark.parametrize("schedule", ["proxy", "scoreboard"])
+def test_stats_group_matches_reference(window, priority, schedule):
+    """A narrow pool (denials, slips, approximate grants), both
+    priorities and both schedules: ``stats_group`` dumps to the
+    reference's text and JSON."""
+    from shrewd_tpu import stats as ref_stats
+    from shrewd_tpu_torch import stats
+
+    ref, mine = window
+    d = RF.FUPoolConfig(approx_coverage=0.5).to_dict()
+    rpool, mpool = RF.FUPoolConfig.from_dict(d), F.FUPoolConfig.from_dict(d)
+    for p in (rpool, mpool):
+        p.int_alu.count = 2
+        p.fp_mult.count = 1
+    rsched = msched = {}
+    if schedule == "scoreboard":
+        rsched = _schedule(RT, ref, RT.TimingConfig())
+        msched = _schedule(T, mine, T.TimingConfig())
+    oc = ref_uops.opclass_of(np.asarray(ref.opcode))
+    a = RF.FUPoolModel(oc, 4, rpool, priority, **rsched)
+    b = F.FUPoolModel(oc, 4, mpool, priority, **msched)
+    got = _stats_dumps(b, stats)
+    assert got == _stats_dumps(a, ref_stats)
+    assert '"shadow_denied"' in got[1]

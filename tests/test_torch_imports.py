@@ -1,7 +1,9 @@
 """The port stands alone: no jax, nothing of ``shrewd_tpu``, and entry
 points that run on the card unless the caller asks for the CPU.  The no-jax
-subprocess drives the trial path, the chunked path on both engines, every
-O3 structure with the FU-pool model and the campaign loop."""
+subprocess imports every module of the port and drives the trial path, the
+chunked path on both engines, every O3 structure with the FU-pool model,
+the campaign loop, and the campaign CLI (``run`` in all three modes and
+``resume``) on the CPU."""
 
 import os
 import shutil
@@ -49,6 +51,29 @@ r = run_until_ci(ShardedCampaign(k, None, "fu", stratify=True), seed=0,
                  simpoint_id=0, structure_id=1, batch_size=32,
                  max_trials=64)
 assert r.trials == 64, r
+import pkgutil, importlib, os, tempfile, json
+import shrewd_tpu_torch as pkg
+for info in pkgutil.walk_packages(pkg.__path__, "shrewd_tpu_torch."):
+    if info.name != "shrewd_tpu_torch.__main__":
+        importlib.import_module(info.name)
+from shrewd_tpu_torch.campaign.plan import CampaignPlan, WorkloadSpec
+from shrewd_tpu_torch.main import main
+from shrewd_tpu_torch.trace.synth import WorkloadConfig
+plan = CampaignPlan(simpoints=[WorkloadSpec(name="w0", workload=WorkloadConfig(
+    n=96, nphys=32, mem_words=64, working_set_words=32, seed=7))],
+    structures=["regfile", "fu"], batch_size=32, target_halfwidth=0.08,
+    max_trials=2048, min_trials=64, checkpoint_every=2)
+with tempfile.TemporaryDirectory() as d:
+    plan.dump_json(os.path.join(d, "plan.json"))
+    for i, flags in enumerate(([], ["--sync-every", "4"], ["--until-ci"])):
+        out = os.path.join(d, f"out{i}")
+        assert main(["run", os.path.join(d, "plan.json"), "--outdir", out,
+                     "--platform", "cpu", *flags]) == 0
+        with open(os.path.join(out, "campaign_ckpt", "campaign.json")) as f:
+            st = json.load(f)["state"]["w0"]
+        assert st["regfile"]["tallies"] == [83, 60, 17, 0], st
+    assert main(["resume", os.path.join(out, "campaign_ckpt"), "--outdir",
+                 os.path.join(d, "again"), "--platform", "cpu"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded
