@@ -4,8 +4,9 @@
 Drives a ``CampaignPlan`` batch-by-batch on the CUDA card (or the CPU, when
 the caller asks). Control shape follows the reference's Simulator/exit-event
 inversion (SURVEY §3.1: C++ simulates, Python orchestrates): the batch step
-on the card (``TrialKernel.tally_on_device``, a K1 launch) is the hot path,
-and this host loop only consumes tallies, updates stats, applies the
+on the card (the structure kernel's ``tally_on_device``: a K1 launch for the
+O3 structures, a step loop for MESI and NoC) is the hot path, and this host
+loop only consumes tallies, updates stats, applies the
 stopping rule, and emits typed events.
 
 Campaign checkpoint/resume replaces the reference's ``m5.cpt`` machinery
@@ -17,11 +18,16 @@ Batch boundaries are the natural drain points (the Drainable analog,
 no device computation is in flight).  The checkpoint holds no device state,
 so a checkpoint written by either package resumes in the other.
 
+The tier structures route to their own fault kernels (``kernel_for``):
+``cache:*`` per simpoint, from the simpoint's golden access stream alone;
+``mesi:*`` and ``noc:*`` once per plan, on a seeded coherence torture
+stream, reported under the ``coherence`` pseudo-simpoint.
+
 Not in this slice, each raising ``NotImplementedError`` before any trial
 runs: a device mesh (multi-GPU), a chaos plan, an elastic context, the
 static certification (``analysis.certify``), a persistent compilation
-cache, the tier structures (``cache:*``, ``mesi:*``, ``noc:*``) and
-``CheckpointSpec`` simpoints.  None is reachable from a default plan.
+cache and ``CheckpointSpec`` simpoints.  None is reachable from a default
+plan.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from shrewd_tpu_torch.chaos import LATER
 from shrewd_tpu_torch.obs import clock as obs_clock
 from shrewd_tpu_torch.obs import export as obs_export
 from shrewd_tpu_torch.obs import trace as obs_trace
-from shrewd_tpu_torch.campaign.plan import (TIER_STRUCTURES, CampaignPlan,
+from shrewd_tpu_torch.campaign.plan import (COHERENCE_SP_NAME, CampaignPlan,
                                             CheckpointSpec)
 from shrewd_tpu_torch.ops import classify as C
 from shrewd_tpu_torch.ops.trial import TrialKernel
@@ -226,6 +232,12 @@ _STRUCTURE_IDS = {
 }
 
 
+# pseudo-simpoint id for the plan-level coherence tiers (mesi:/noc: do not
+# depend on any simpoint's trace, so they run once per plan); the reserved
+# NAME lives in plan.py, where construction rejects real simpoints using it
+_COHERENCE_SP_ID = 1_000_000
+
+
 def _avf32(tallies) -> float:
     """(SDC+DUE)/trials of a host tally in float32, as the reference's
     ``classify.avf`` computes it (its ``BatchInfo.avf`` and the ``avf``
@@ -241,6 +253,10 @@ def _structure_id(structure: str) -> int:
     return _STRUCTURE_IDS[structure]
 
 
+def _is_plan_level(structure: str) -> bool:
+    return structure.split(":", 1)[0] in ("mesi", "noc")
+
+
 class Orchestrator:
     def __init__(self, plan: CampaignPlan, mesh=None,
                  outdir: str | None = None, device=None):
@@ -252,11 +268,6 @@ class Orchestrator:
                 f"a device mesh {LATER} (multi-GPU); pass mesh=None")
         # every option this slice does not run is refused here, before the
         # first trial (none of them is reachable from a default plan)
-        tiers = [s for s in plan.structures if s in TIER_STRUCTURES]
-        if tiers:
-            raise NotImplementedError(
-                f"the tier structures {tiers} (cache/MESI/NoC kernels) "
-                f"{LATER}")
         if any(isinstance(sp, CheckpointSpec) for sp in plan.simpoints):
             raise NotImplementedError(
                 f"CheckpointSpec simpoints (checkpoint ingest) {LATER}")
@@ -282,13 +293,17 @@ class Orchestrator:
         # (_compute_batch via _global_batch_id).
         self.shard_index = int(plan.shard_index)
         self.shard_count = int(plan.shard_count)
-        self._per_sp = list(plan.structures)
+        self._per_sp = [s for s in plan.structures if not _is_plan_level(s)]
+        self._plan_level = [s for s in plan.structures if _is_plan_level(s)]
         self.state: dict[tuple[str, str], _State] = {
             (sp.name, s): _State()
             for sp in plan.simpoints for s in self._per_sp}
+        for s in self._plan_level:
+            self.state[(COHERENCE_SP_NAME, s)] = _State()
         self.results: dict[tuple[str, str], StructureResult] = {}
         self._kernels: dict[int, TrialKernel] = {}
         self._traces: dict[int, object] = {}
+        self._tier_kernels: dict = {}
         self._campaigns: dict[tuple[int, str], ShardedCampaign] = {}
         # backend resilience: one watchdog + escalation budget per
         # orchestrator (backend health is a process property, not a
@@ -390,6 +405,8 @@ class Orchestrator:
     def _build_stats(self) -> None:
         self.stats = statsmod.Group("campaign")
         sweep = [(sp.name, self._per_sp) for sp in self.plan.simpoints]
+        if self._plan_level:
+            sweep.append((COHERENCE_SP_NAME, self._plan_level))
         for sp_name, structures in sweep:
             g = statsmod.Group(sp_name)
             setattr(self.stats, f"sp_{sp_name}", g)
@@ -615,17 +632,68 @@ class Orchestrator:
                 device=self.device)
         return self._kernels[sp_idx]
 
+    def kernel_for(self, sp_idx: int, structure: str):
+        """→ (kernel, substructure): O3/Minor structures go to the trial
+        kernel; tier-qualified names route to the cache / MESI / NoC fault
+        kernels (plan.TIER_STRUCTURES), each on the orchestrator's
+        device."""
+        tier, _, sub = structure.partition(":")
+        if not sub:
+            return self.kernel(sp_idx), structure
+        if tier == "cache":
+            key = ("cache", sp_idx)
+            if key not in self._tier_kernels:
+                from shrewd_tpu_torch.models.ruby import (
+                    CacheKernel, golden_access_stream, simulate_cache)
+                # the cache tier needs only the simpoint's access stream,
+                # not the O3 trial kernel
+                trace = self.trace(sp_idx)
+                tl, _miss = simulate_cache(golden_access_stream(trace),
+                                           self.plan.cache,
+                                           n_cycles=trace.n)
+                self._tier_kernels[key] = CacheKernel(
+                    tl, self.plan.cache, device=self.device)
+            return self._tier_kernels[key], sub
+        if tier in ("mesi", "noc"):
+            if "mesi_trace" not in self._tier_kernels:
+                from shrewd_tpu_torch.models.mesi import torture_stream
+                self._tier_kernels["mesi_trace"] = torture_stream(
+                    self.plan.mesi, self.plan.coherence_accesses,
+                    self.plan.coherence_mem_words, seed=self.plan.seed)
+            stream = self._tier_kernels["mesi_trace"]
+            if tier == "mesi":
+                if "mesi" not in self._tier_kernels:
+                    from shrewd_tpu_torch.models.mesi import MesiKernel
+                    rng = np.random.default_rng(self.plan.seed)
+                    init = rng.integers(
+                        0, 1 << 32, self.plan.coherence_mem_words,
+                        dtype=np.uint64).astype(np.uint32)
+                    self._tier_kernels["mesi"] = MesiKernel(
+                        stream, self.plan.mesi, init, device=self.device)
+                return self._tier_kernels["mesi"], sub
+            if "noc" not in self._tier_kernels:
+                from shrewd_tpu_torch.models.noc import (NocKernel,
+                                                         build_message_trace)
+                msgs = build_message_trace(stream, self.plan.mesi,
+                                           self.plan.noc)
+                self._tier_kernels["noc"] = NocKernel(
+                    msgs, self.plan.noc, device=self.device)
+            return self._tier_kernels["noc"], sub
+        raise KeyError(f"unknown structure tier {tier!r}")
+
     def campaign(self, sp_idx: int, structure: str) -> ShardedCampaign:
         key = (sp_idx, structure)
         if key not in self._campaigns:
-            kernel = self.kernel(sp_idx)
+            kernel, sub = self.kernel_for(sp_idx, structure)
+            stratify = (self.plan.stratify
+                        and hasattr(kernel, "run_keys_stratified"))
             # the shared watchdog guards only the device step inside the
             # campaign (ShardedCampaign._dispatch): a timed-out step raises
             # BEFORE any host-side counter mutation, so an orphaned
             # dispatch thread that completes late ran only pure device
             # work and cannot corrupt kernel.escapes/taint_trials
             self._campaigns[key] = ShardedCampaign(
-                kernel, None, structure, stratify=self.plan.stratify,
+                kernel, None, sub, stratify=stratify,
                 watchdog=self.watchdog,
                 integrity_check=self.icfg.invariants)
         return self._campaigns[key]
@@ -843,6 +911,18 @@ class Orchestrator:
                 if self.aborted or self.preempted:
                     return    # budget abort / drain: no CAMPAIGN_COMPLETE
             yield ExitEvent.SIMPOINT_COMPLETE, sp.name
+        if self._plan_level:
+            # coherence tiers (mesi:/noc:) measure plan-level synthetic
+            # traffic, independent of every simpoint's trace — run ONCE
+            for structure in self._plan_level:
+                st = self.state[(COHERENCE_SP_NAME, structure)]
+                if st.done:
+                    continue
+                yield from self._run_structure(
+                    _COHERENCE_SP_ID, COHERENCE_SP_NAME, structure, st)
+                if self.aborted or self.preempted:
+                    return
+            yield ExitEvent.SIMPOINT_COMPLETE, COHERENCE_SP_NAME
         yield ExitEvent.CAMPAIGN_COMPLETE, dict(self.results)
 
     def _run_structure(self, sp_idx: int, sp_name: str, structure: str,

@@ -267,11 +267,11 @@ class CanaryBattery:
                 return None          # device path may legally SDC-clip
             faults = kernel.sample_batch(self.seed_keys, self.structure)
             return np.asarray(kernel.oracle_outcomes(faults))
-        # the tier kernels (cache/MESI/NoC), whose reference is their
-        # unsharded campaign protocol, come with a later slice
-        raise NotImplementedError(
-            f"{type(kernel).__name__}: seed canaries for the tier kernels "
-            "come with a later slice of the PyTorch port")
+        # tier kernels (cache/MESI/NoC): the kernel's own per-trial
+        # outcomes on the campaign's device are the reference (the canary
+        # then proves the campaign's tally path reproduces them)
+        return kernel.outcomes_from_keys(self.seed_keys,
+                                         self.structure).cpu().numpy()
 
     def seed_expected(self) -> np.ndarray | None:
         if self._seed_usable is None:

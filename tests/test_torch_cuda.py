@@ -1,5 +1,7 @@
 """Card tests of the port's Hopper kernels (``ops/taint_cuda.py``): the
-fast pass (K1) and the chunk kernel (K2) with the chunked path around it.
+fast pass (K1) and the chunk kernel (K2) with the chunked path around it;
+and of the tier kernels (cache, MESI, NoC), whose step loops and scatters
+on the card must give their CPU outcomes.
 
 Each test needs a CUDA card and skips without one.  They import torch and
 the port only (no JAX), so on a machine with the card run them as
@@ -654,3 +656,105 @@ def test_k1_launch_failure_raises_out_of_the_orchestrator(cuda, tmp_path,
         list(orch.events())
     for st in orch.state.values():
         assert st.tier_trials.tolist() == [0, 0, 0] and st.next_batch == 0
+
+
+# --- the tier structures (cache, MESI, NoC) -------------------------------
+
+def _tier_pair(cuda, tier: str):
+    """(card kernel, CPU kernel) of one tier at a small size."""
+    from shrewd_tpu_torch.models import mesi as M
+    from shrewd_tpu_torch.models import noc as N
+    from shrewd_tpu_torch.models import ruby as R
+    if tier == "cache":
+        t = native.generate_trace(seed=5, n=512, nphys=64, mem_words=1024,
+                                  working_set_words=256)
+        tl, _ = R.simulate_cache(R.golden_access_stream(t), R.CacheConfig(),
+                                 t.n)
+        return (R.CacheKernel(tl, R.CacheConfig(), device=cuda),
+                R.CacheKernel(tl, R.CacheConfig(), device="cpu"))
+    cfg = M.MesiConfig(n_cores=4)
+    tr = M.torture_stream(cfg, 96, 64, seed=3, sharing=0.6)
+    mem = np.random.default_rng(9).integers(0, 1 << 32, 64,
+                                            dtype=np.uint64).astype(np.uint32)
+    if tier == "mesi":
+        return (M.MesiKernel(tr, cfg, mem, device=cuda),
+                M.MesiKernel(tr, cfg, mem, device="cpu"))
+    ncfg = N.NocConfig(vcs_per_vnet=1, buffers_per_data_vc=1,
+                       buffers_per_ctrl_vc=1)
+    msgs = N.build_message_trace(tr, cfg, ncfg)
+    return (N.NocKernel(msgs, ncfg, device=cuda),
+            N.NocKernel(msgs, ncfg, device="cpu"))
+
+
+@pytest.mark.parametrize("structure", [
+    "cache:data", "cache:tag", "cache:state", "mesi:state", "mesi:tag",
+    "mesi:dir", "mesi:tbe", "noc:router"])
+def test_tier_kernel_on_card_equals_cpu(cuda, structure):
+    """Per-key outcomes and the stratified tally of each tier kernel on the
+    card equal its CPU outcomes for the same keys (scatters, first-index
+    choices and searchsorted alike on both devices)."""
+    tier, sub = structure.split(":")
+    card, cpu = _tier_pair(cuda, tier)
+    keys = prng.trial_keys(prng.campaign_key(11, "cpu"), 2048)
+    got = card.outcomes_from_keys(keys.to(cuda), sub)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cpu.outcomes_from_keys(keys, sub).numpy())
+    tally, n_unres = card.tally_on_device(keys.to(cuda), sub,
+                                          stratified=True)
+    assert tally.device.type == "cuda" and int(n_unres) == 0
+    np.testing.assert_array_equal(
+        tally.cpu().numpy(), cpu.run_keys_stratified(keys, sub)[0].numpy())
+
+
+def test_noc_pipeline_on_card_equals_cpu(cuda):
+    """The flit pipeline on lanes of every pipeline type, some starved by
+    a lost credit."""
+    from shrewd_tpu_torch.models import noc as N
+    card, cpu = _tier_pair(cuda, "noc")
+    rng = np.random.default_rng(4)
+    n = 256
+    co = [rng.integers(0, 4, n), rng.integers(0, card.n_cycles, n),
+          np.repeat(N.PIPELINE_TYPES, n // 4), rng.integers(0, 2, n)]
+    d, c = N.flit_sim(card.msgs, card.cfg, N.NocFault(
+        *(torch.as_tensor(x, device=cuda) for x in co)), card._horizon)
+    dc, cc = N.flit_sim(cpu.msgs, cpu.cfg, N.NocFault(
+        *(torch.as_tensor(x) for x in co)), cpu._horizon)
+    np.testing.assert_array_equal(d.cpu().numpy(), dc.numpy())
+    np.testing.assert_array_equal(c.cpu().numpy(), cc.numpy())
+    assert (dc < 0).any()
+
+
+@pytest.mark.parametrize("mode", ["serial", "until"])
+def test_tier_plan_on_card_equals_cpu(cuda, tmp_path, mode):
+    """A plan naming all six tier structures through the Orchestrator on
+    the card and on the CPU: the same results and checkpoint state, every
+    batch on the device tier, the seed canaries passed."""
+    import json
+    import os
+
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+
+    docs = []
+    for dev in (cuda, "cpu"):
+        plan = _tiny_plan(mode, True)
+        plan.structures = ["cache:data", "cache:tag", "cache:state",
+                           "mesi:state", "mesi:tag", "noc:router"]
+        plan.coherence_accesses = 48
+        orch = Orchestrator(plan, outdir=str(tmp_path / str(dev)),
+                            device=dev)
+        evs = list(orch.events())
+        assert evs[-1][0].name == "CAMPAIGN_COMPLETE"
+        orch.checkpoint()
+        with open(os.path.join(orch.outdir, "campaign_ckpt",
+                               "campaign.json")) as f:
+            doc = json.load(f)
+        assert doc["integrity"]["canary_failures"] == 0
+        assert doc["integrity"]["canary_runs"] > 0
+        for per in doc["state"].values():
+            for st in per.values():
+                assert st["tier_trials"][1:] == [0, 0]
+        docs.append((doc["state"], doc["integrity"],
+                     sorted((k, r.tallies.tolist(), r.trials)
+                            for k, r in orch.results.items())))
+    assert docs[0] == docs[1]

@@ -2,8 +2,9 @@
 points that run on the card unless the caller asks for the CPU.  The no-jax
 subprocess imports every module of the port and drives the trial path, the
 chunked path on both engines, every O3 structure with the FU-pool model,
-the campaign loop, and the campaign CLI (``run`` in all three modes and
-``resume``) on the CPU."""
+the campaign loop, the cache, MESI and NoC tier kernels, and the campaign
+CLI (``run`` in all three modes and ``resume``, and a tier plan) on the
+CPU."""
 
 import os
 import shutil
@@ -74,6 +75,29 @@ with tempfile.TemporaryDirectory() as d:
         assert st["regfile"]["tallies"] == [83, 60, 17, 0], st
     assert main(["resume", os.path.join(out, "campaign_ckpt"), "--outdir",
                  os.path.join(d, "again"), "--platform", "cpu"]) == 0
+from shrewd_tpu_torch.models import mesi as M, noc as N
+from shrewd_tpu_torch.models.ruby import CacheHierarchy
+h = CacheHierarchy.build(t, device="cpu")
+for s in ("data", "tag", "state"):
+    assert int(h.l1.run_keys(keys, s).sum()) == 32, s
+mcfg = M.MesiConfig()
+stream = M.torture_stream(mcfg, 48, 64, seed=0)
+mk = M.MesiKernel(stream, mcfg, list(range(64)), device="cpu")
+for s in ("state", "tag", "dir", "tbe"):
+    assert int(mk.run_keys(keys, s).sum()) == 32, s
+nk = N.NocKernel(N.build_message_trace(stream, mcfg, N.NocConfig()),
+                 N.NocConfig(), device="cpu")
+assert int(nk.run_keys(keys).sum()) == 32
+tiers = CampaignPlan(simpoints=[WorkloadSpec(name="w0",
+    workload=WorkloadConfig(n=96, nphys=32, mem_words=64,
+                            working_set_words=32, seed=7))],
+    structures=["cache:data", "mesi:state", "noc:router"], batch_size=32,
+    target_halfwidth=0.08, max_trials=2048, min_trials=64,
+    coherence_accesses=48)
+with tempfile.TemporaryDirectory() as d:
+    tiers.dump_json(os.path.join(d, "tiers.json"))
+    assert main(["run", os.path.join(d, "tiers.json"), "--outdir", d,
+                 "--platform", "cpu", "--until-ci"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded

@@ -34,3 +34,31 @@ def test_orchestrator_pins_for_chip_smoke(mesh):
     got = dict(tallies=r.tallies.tolist(), trials=r.trials,
                batches=r.batches, strata=r.strata_tallies.tolist())
     assert got == pin
+
+
+def test_stop_record_reads_a_looser_target_off_a_tighter_run():
+    """``chip_smoke.py`` phase 13 reads the target-0.01 result off its
+    0.005 run's batches (``stop_record``): on a small plan, the record at
+    the looser target equals the result of a run at that target."""
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from test_torch_orchestrator import port_plan, tiny_plan
+
+    smoke = _chip_smoke()
+    loose, tight = 0.08, 0.04
+    full = Orchestrator(port_plan(tiny_plan(stratify=True, target=loose)),
+                        device="cpu")
+    list(full.events())
+    orch = Orchestrator(port_plan(tiny_plan(stratify=True, target=tight)),
+                        device="cpu")
+    rec = None
+    for ev, info in orch.events():
+        if (ev.name == "BATCH_COMPLETE" and info.structure == "regfile"
+                and rec is None):
+            rec = smoke.stop_record(orch.state[("w0", "regfile")], loose,
+                                    orch.plan)
+    r = full.results[("w0", "regfile")]
+    st = full.state[("w0", "regfile")]
+    assert rec == dict(tallies=r.tallies.tolist(), trials=r.trials,
+                       batches=st.next_batch, strata=st.strata.tolist(),
+                       avf_interval=tuple(r.avf_interval))
+    assert orch.state[("w0", "regfile")].next_batch > st.next_batch

@@ -6,7 +6,7 @@ default plan and one with every child and param off its default.  A
 a ``WorkloadSpec`` window is the reference's, array for array.  Every
 option whose engine comes with a later slice raises
 ``NotImplementedError`` before a trial runs, and a default plan reaches
-none of them."""
+none of them; a plan naming a tier structure runs."""
 
 import json
 
@@ -20,6 +20,7 @@ from shrewd_tpu_torch.campaign import plan as PP
 from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
 from shrewd_tpu_torch.trace import format as pformat
 from shrewd_tpu_torch.trace import synth as psynth
+from test_torch_ruby import one_torch_thread  # noqa: F401
 
 _WL = dict(n=96, nphys=32, mem_words=64, working_set_words=32, seed=7)
 
@@ -132,26 +133,45 @@ def _later_options():
     def checkpoint_spec(p):
         p.simpoints.append(PP.CheckpointSpec(name="c", cpt_dir="cpt"))
 
-    opts = {"chaos_spec": chaos, "chaos_path": chaos_path,
+    return {"chaos_spec": chaos, "chaos_path": chaos_path,
             "certify": certify, "compilation_cache_dir": cache_dir,
             "checkpoint_spec": checkpoint_spec}
-    for s in ("cache:data", "cache:tag", "cache:state", "mesi:state",
-              "mesi:tag", "noc:router"):
-        opts[s] = (lambda s: lambda p: p.structures.append(s))(s)
-    return opts
+
+
+def _no_o3_step(monkeypatch) -> list:
+    """Record every call of the O3 batch step instead of running it."""
+    from shrewd_tpu_torch.ops import trial
+
+    ran: list = []
+    monkeypatch.setattr(trial.TrialKernel, "tally_on_device",
+                        lambda *a, **k: ran.append(1))
+    return ran
 
 
 @pytest.mark.parametrize("option", sorted(_later_options()))
 def test_later_slice_options_raise_before_a_trial(option, monkeypatch):
-    from shrewd_tpu_torch.ops import trial
-
-    ran = []
-    monkeypatch.setattr(trial.TrialKernel, "tally_on_device",
-                        lambda *a, **k: ran.append(1))
+    """Every option of a later slice raises before the first trial."""
+    ran = _no_o3_step(monkeypatch)
     plan = _tiny()
     _later_options()[option](plan)
     with pytest.raises(NotImplementedError, match="later slice|jax"):
         list(Orchestrator(plan, device="cpu").events())
+    assert not ran
+
+
+@pytest.mark.parametrize("structure", ["cache:data", "cache:tag",
+                                       "cache:state", "mesi:state",
+                                       "mesi:tag", "noc:router"])
+def test_tier_structures_run_without_the_o3_step(structure, monkeypatch):
+    """A plan naming one tier structure completes on the tier's own
+    kernel, and the O3 batch step never runs."""
+    ran = _no_o3_step(monkeypatch)
+    plan = _tiny()
+    plan.structures = [structure]
+    plan.coherence_accesses = 48
+    events = list(Orchestrator(plan, device="cpu").events())
+    assert events[-1][0].name == "CAMPAIGN_COMPLETE"
+    assert [k[1] for k in events[-1][1]] == [structure]
     assert not ran
 
 
