@@ -27,8 +27,9 @@ JAX.  Phases, each fatal:
    tally sums to the batch, the first 4096 keys give the JAX reference's
    pinned tally, and 2048 outcomes equal the serial C++ oracle's;
 6. timings with CUDA events (median of 5 after a warm-up; the host
-   loops, row pass, dense re-run and ``run_keys``, median of 3, warmed by
-   phase 5; K1's plain version once, warmed by phase 4) beside the card's
+   loops, row pass, dense re-run and ``run_keys``, one timed call each,
+   warmed by phase 5; K1's plain version once, warmed by phase 4) beside
+   the card's
    name and power limit; K1's bound two ways (the full body on every
    step from each landing, and the function's own need from the
    kernel's hit counts: the kernels line's) and its longest walk;
@@ -128,7 +129,31 @@ JAX.  Phases, each fatal:
     ``--until-ci``, and a run drained after its first coherence batch
     and finished by ``resume``): rc 0, every result the JAX reference's,
     every batch on the device tier, integrity clean, the seed canaries
-    run and passed, no K1 launch and no call of its plain version.
+    run and passed, no K1 launch and no call of its plain version;
+15. multi-device campaigns on the one card, phase 13's plan: (a) the
+    collective mesh at world size 1 — the script initialises a one-rank
+    NCCL group on a free local port, and the CLI, in-process with the
+    default mesh, runs the plan at target 0.01 under a chaos plan that the
+    device tier alone survives (a wedge under ``--dispatch-timeout``, a
+    transient device ``backend_error``, a ``corrupt_tally`` and a
+    ``torn_checkpoint`` with ``checkpoint_every=1``): rc 0, ``make_mesh()``
+    spans the group, the tallies' ``all_reduce`` ran over NCCL, every
+    fault injected was survived, the integrity counters show the
+    quarantine and its recovery, every batch on the device tier, the
+    results ``PIN_CI``, K1's launches exactly the batches plus the
+    re-dispatches, two per canary run and one per audited batch, no call of
+    its plain version on card tensors, K1 held against its plain version
+    on the first batch launch; then the group is destroyed; (b) two
+    elastic workers on the card, ``python -m
+    shrewd_tpu_torch.parallel.launch --mode elastic --num-processes 2
+    --kill-worker 1 --at-batch 2`` over the plan at target 0.005: worker 1
+    dies with rc 137 at its second dispatched batch after publishing a
+    result, the survivor revokes its lease, reclaims the batch and
+    finishes with ``PIN_CLI``, the two workers computed each batch once
+    between them, and in each worker K1's launches are exactly the
+    batches it computed plus its re-dispatches, two per canary run and one
+    per audited batch, with no call of K1's plain version on card tensors.
+    One card serves both workers: the times are not a scaling number.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -160,8 +185,9 @@ PIN_TALLY = [3095, 450, 551, 0]
 N_ORACLE = 2048
 N_MIXED = 16384
 REPS = 5                        # phase 6: median of 5
-REPS_HOST = 3                   # phase 6's host-driven loops (row pass,
-                                # dense re-run, run_keys): seconds each
+REPS_HOST = 1                   # phase 6's host-driven loops (row pass,
+                                # dense re-run, run_keys): seconds each,
+                                # one timed call (timing depth, no gate)
 REPS_CHUNKED = 3                # phase 10's K2 waves, chunk record, setup
 REPS_CHUNKED_E2E = 1            # phase 10's outcomes_from_keys: each run
                                 # holds a 65536-step exact fallback of
@@ -1372,6 +1398,247 @@ def cli_phase(torch, marks, card) -> dict:
     return {"timings": timings, "launches": launches, "k1_max_err": max_err}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(torch, marks, card) -> dict:
+    """Phase 15, multi-device campaigns on the one card → the timings,
+    K1's launches on each run and K1's largest difference from its plain
+    version on run (a)'s first batch."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan, TraceFileSpec
+    from shrewd_tpu_torch.main import main as cli
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops import taint_cuda, trial
+    from shrewd_tpu_torch.ops.taint_cuda import taint_fast_cuda
+    from shrewd_tpu_torch.parallel.mesh import make_mesh
+    from shrewd_tpu_torch.trace import format as tf
+
+    t_phase = time.monotonic()
+    timings: dict = {"card": card}
+    launches: dict = {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    npz = os.path.join(d, "flagship.npz")
+    tf.save(npz, native.generate_trace(**FLAGSHIP),
+            meta={"source": "native.generate_trace", **FLAGSHIP})
+
+    def plan_file(name: str, target: float, **kw) -> str:
+        path = os.path.join(d, name)
+        CampaignPlan(
+            simpoints=[TraceFileSpec(name="flagship", path=npz)],
+            structures=["regfile", "fu"], batch_size=CI_BATCH,
+            target_halfwidth=target, stratify=True,
+            machine=O3Config(shadow_model="fupool"), **kw).dump_json(path)
+        return path
+
+    # (a) the collective mesh over a one-rank NCCL group
+    sizes: list = []
+    kept: list = []
+    launch = trial.taint_fast_cuda
+
+    def sized(*a, **kw):
+        got = launch(*a, **kw)
+        sizes.append(int(a[3].kind.shape[0]))
+        if sizes[-1] == CI_BATCH and not kept:
+            kept.append((a, {x: v for x, v in kw.items() if x != "stream"},
+                         got))
+        return got
+
+    plain_cuda = [0]
+    plain = taint_cuda.taint_fast_plain
+
+    def counted_plain(*a, **kw):
+        if a[3].kind.device.type == "cuda":
+            plain_cuda[0] += 1
+        return plain(*a, **kw)
+
+    reduces: list = []
+    all_reduce = dist.all_reduce
+
+    def counted_reduce(tensor, *a, **kw):
+        reduces.append((tensor.device.type, dist.get_backend()))
+        return all_reduce(tensor, *a, **kw)
+
+    chaos_path = os.path.join(d, "chaos.json")
+    faults = [
+        {"kind": "wedge", "at_batch": 0, "structure": "regfile"},
+        {"kind": "backend_error", "at_batch": 1, "structure": "regfile",
+         "tier": "device"},
+        {"kind": "corrupt_tally", "at_batch": 0, "structure": "fu",
+         "delta": 1},
+        {"kind": "torn_checkpoint", "at_ckpt": 1}]
+    with open(chaos_path, "w") as f:
+        json.dump({"seed": 0, "faults": faults}, f)
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    trial.taint_fast_cuda = sized
+    taint_cuda.taint_fast_plain = counted_plain
+    dist.all_reduce = counted_reduce
+    out_a = os.path.join(d, "a")
+    try:
+        mesh = make_mesh()
+        if (mesh.backend, mesh.world_size, mesh.size) != (
+                "nccl", 1, torch.cuda.device_count()):
+            fail(f"(a): make_mesh() is {mesh}, not the one-rank NCCL group")
+        taint_fast_cuda.launches = 0
+        t0 = time.monotonic()
+        rc = cli(["run", plan_file("plan01.json", CI_TARGET,
+                                   checkpoint_every=1),
+                  "--outdir", out_a, "--chaos-plan", chaos_path,
+                  "--dispatch-timeout", "120", "--worker", "w0"])
+        torch.cuda.synchronize()
+        wall_a = time.monotonic() - t0
+        n_launch = taint_fast_cuda.launches
+    finally:
+        trial.taint_fast_cuda = launch
+        taint_cuda.taint_fast_plain = plain
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+    if rc != 0:
+        fail(f"(a): CLI rc {rc}")
+    if dist.is_initialized():
+        fail("(a): the process group outlived the run")
+    doc = _read_json(os.path.join(out_a, "campaign_ckpt", "campaign.json"))
+    stats = _read_json(os.path.join(out_a, "stats.json"))
+    batches = 0
+    for s, pin in PIN_CI.items():
+        st = doc["state"]["flagship"][s]
+        got = dict(tallies=st["tallies"], trials=sum(st["tallies"]),
+                   batches=st["next_batch"], strata=st["strata"])
+        want = {k: pin[k] for k in got}
+        if got != want or st["tier_trials"] != [pin["trials"], 0, 0]:
+            fail(f"(a) {s}: {got}, tiers {st['tier_trials']} != JAX "
+                 f"reference {want} on the device tier")
+        batches += pin["batches"]
+    chaos = stats["chaos"]
+    kinds = {fl["kind"]: 1 for fl in faults}
+    if chaos["injected"] != kinds or chaos["survived"] != kinds:
+        fail(f"(a): chaos injected {chaos['injected']}, survived "
+             f"{chaos['survived']}, expected {kinds} each")
+    ig = stats["integrity"]
+    if (ig["quarantined_batches"], ig["recovered_batches"]) != (1, 1) or \
+            ig["canary_failures"] or ig["audit_mismatches"]:
+        fail(f"(a): integrity counters {ig}")
+    tiers = stats["resilience"]["tier_trials"]
+    if tiers["cpu"] or tiers["oracle"]:
+        fail(f"(a): resilience.tier_trials {tiers}")
+    mon = doc["integrity"]
+    want = {CI_BATCH: batches + mon["requeues"], 3: mon["canary_runs"],
+            2: mon["canary_runs"], 64: mon["audit_batches"]}
+    got = {n: sizes.count(n) for n in set(sizes) | set(want)}
+    if got != want or n_launch != len(sizes):
+        fail(f"(a): K1 launches by lane count {got} != the batches and "
+             f"re-dispatches, canaries and audit samples {want} (counter "
+             f"{n_launch})")
+    if plain_cuda[0]:
+        fail("(a): K1's plain version ran on card tensors")
+    nccl = sum(1 for dev, be in reduces if dev == "cuda" and be == "nccl")
+    if nccl < batches or len(reduces) != nccl:
+        fail(f"(a): {nccl} all_reduce calls over NCCL on the card for "
+             f"{batches} batches ({reduces[:4]})")
+    args, kw, got = kept[0]
+    max_err = compare(torch, got, plain(*args, **kw), "(a) first batch")
+    trials_a = sum(p["trials"] for p in PIN_CI.values())
+    timings["mesh_a"] = {
+        "wall_s": wall_a, "trials_per_s": trials_a / wall_a,
+        "batches": batches, "requeues": mon["requeues"],
+        "canary_runs": mon["canary_runs"],
+        "audit_batches": mon["audit_batches"], "k1_launches": n_launch,
+        "nccl_all_reduces": nccl, "chaos": chaos,
+        "dispatch_timeouts": stats["resilience"]["dispatch_timeouts"]}
+    launches["mesh (a) NCCL world 1, chaos"] = n_launch
+    log(f"(a) one-rank NCCL mesh, chaos plan: rc 0, results == PIN_CI on "
+        f"the device tier, {chaos['survived']} survived, 1 batch "
+        f"quarantined and recovered, K1 {n_launch} launches = {batches} "
+        f"batches + {mon['requeues']} re-dispatch + 2 x "
+        f"{mon['canary_runs']} canary runs + {mon['audit_batches']} audit "
+        f"samples, 0 plain calls, {nccl} all_reduce over NCCL; "
+        f"{wall_a:.1f} s = {trials_a / wall_a:,.0f} trials/s ({card})")
+    marks("15a one-rank NCCL mesh + chaos")
+
+    # (b) two elastic workers on the one card, worker 1 killed
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "shrewd_tpu_torch.parallel.launch",
+         "--mode", "elastic", "--num-processes", "2", "--kill-worker", "1",
+         "--at-batch", "2", "--plan", plan_file("plan005.json", CLI_TARGET),
+         "--no-reference", "--timeout", "400"],
+        capture_output=True, text=True, timeout=450)
+    wall_b = time.monotonic() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"(b): launcher rc {proc.returncode}: {proc.stdout[-1500:]} "
+             f"{proc.stderr[-1500:]}")
+    res = json.loads(lines[-1])
+    w0, w1 = res["workers"]["w0"], res["workers"]["w1"]
+    if not res["ok"] or (w1["rc"], w1.get("killed"), w1.get("dispatches")) \
+            != (137, True, 2) or res["published_by"].get("w1", 0) < 1:
+        fail(f"(b): the kill did not go as planned: {res}")
+    if res["survivors"] != [0] or res["leases_revoked"] < 1 or \
+            res["batches_reclaimed"] < 1:
+        fail(f"(b): the survivor did not revoke and reclaim: {res}")
+    for s, pin in PIN_CLI.items():
+        got = res["results"][f"flagship/{s}"]
+        if {k: got[k] for k in pin} != pin:
+            fail(f"(b) {s}: survivor {got} != JAX reference {pin}")
+    for name, w in (("w0", w0), ("w1", w1)):
+        # two launches per canary run, as in (a)
+        want = (w["batches_computed"] + w["requeues"]
+                + 2 * w["canary_runs"] + w["audit_batches"])
+        if w["k1_launches"] != want or w["batches_computed"] < 1:
+            fail(f"(b) {name}: {w['k1_launches']} K1 launches != "
+                 f"{w['batches_computed']} batches computed + "
+                 f"{w['requeues']} re-dispatches + 2 x {w['canary_runs']} "
+                 f"canary runs + {w['audit_batches']} audit samples")
+        if w["k1_plain_card_calls"]:
+            fail(f"(b) {name}: K1's plain version ran "
+                 f"{w['k1_plain_card_calls']} times on card tensors")
+    if w0["batches_computed"] + w1["batches_computed"] != sum(
+            p["batches"] for p in PIN_CLI.values()):
+        fail(f"(b): the workers computed {w0['batches_computed']} + "
+             f"{w1['batches_computed']} batches, not each batch of "
+             f"PIN_CLI once")
+    trials_b = sum(p["trials"] for p in PIN_CLI.values())
+    parts = ("k1_launches", "batches_computed", "requeues", "canary_runs",
+             "audit_batches")
+    timings["mesh_b"] = {
+        "wall_s": wall_b, "trials_per_s": trials_b / wall_b,
+        "elastic_w0": w0["elastic"], "published_by": res["published_by"],
+        "k1_launches": {"w0": w0["k1_launches"], "w1": w1["k1_launches"]},
+        "k1_parts": {n: {p: w[p] for p in parts}
+                     for n, w in (("w0", w0), ("w1", w1))}}
+    launches["mesh (b) elastic worker 0"] = w0["k1_launches"]
+    launches["mesh (b) elastic worker 1 (killed)"] = w1["k1_launches"]
+    log(f"(b) two elastic workers on one card: w1 rc 137 at its 2nd "
+        f"dispatched batch after publishing {res['published_by']['w1']}, "
+        f"w0 revoked {res['leases_revoked']} lease(s), reclaimed "
+        f"{res['batches_reclaimed']} and finished == PIN_CLI; K1 launches "
+        + "; ".join(
+            f"{n} {w['k1_launches']} = {w['batches_computed']} batches + "
+            f"{w['requeues']} re-dispatches + 2 x {w['canary_runs']} canary "
+            f"runs + {w['audit_batches']} audit samples"
+            for n, w in (("w0", w0), ("w1", w1)))
+        + f", 0 plain calls; {wall_b:.1f} s "
+        f"= {trials_b / wall_b:,.0f} trials/s, both workers on the one card "
+        f"(not a scaling number; {card})")
+    shutil.rmtree(d, ignore_errors=True)
+    timings["mesh_phase_s"] = time.monotonic() - t_phase
+    marks("15b elastic workers")
+    return {"timings": timings, "launches": launches, "k1_max_err": max_err}
+
+
 def noc_table_outcome(msgs, ftype: int, router: int, cycle: int) -> int:
     """The host oracle of a table-classified NoC lane: the first message on
     ``router`` at ``cycle`` decides by the (type, kind) table; none is
@@ -1816,7 +2083,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    from shrewd_tpu_torch import native
+    try:
+        from shrewd_tpu_torch import native
+    except ModuleNotFoundError as e:
+        # run from a directory that holds this script alone: the port it
+        # drives is not there
+        print(f"chip_smoke: {e}; run this script from the root of the "
+              "repository", file=sys.stderr)
+        return 2
     from shrewd_tpu_torch.isa import uops as U
     from shrewd_tpu_torch.models.o3 import O3Config, compute_shadow_cov
     from shrewd_tpu_torch.ops import classify as C
@@ -2079,13 +2353,17 @@ def main() -> int:
     cli_run = cli_phase(torch, marks, card)
     log(json.dumps({"timings": cli_run["timings"]}))
     log(json.dumps({"timings": tier_phase(torch, marks, card)}))
+    mesh_run = mesh_phase(torch, marks, card)
+    log(json.dumps({"timings": mesh_run["timings"]}))
     paths["launches"].update(cli_run["launches"])
+    paths["launches"].update(mesh_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
     k2_paths = {"outcomes_from_keys regfile": k2_record["launches"], **{
         p: n for p, n in paths["launches"].items() if "chunked" in p}}
-    max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"])
+    max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"],
+                  mesh_run["k1_max_err"])
     k2_err = k2_record["max_abs_err"]
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),

@@ -17,16 +17,19 @@ The paths mirror the reference's:
 - ``ops``    — dense scan, deviation-set scans, the CUDA kernels, the
   trial runner ``TrialKernel``, and chunked replay (``window``,
   ``chunked.ChunkedCampaign``)
-- ``parallel`` — the campaign step, its interval and until-CI engines,
-  the stopping rule, the shared kernel registry
-- ``resilience``, ``integrity`` — the degradation ladder and the checked
-  dispatch (canaries, invariants, audit)
+- ``parallel`` — the sharded campaign step over a device mesh
+  (``torch.distributed`` across processes), its interval and until-CI
+  engines, the stopping rule, the elastic lease board, the multi-process
+  launcher, the shared kernel registry
+- ``resilience``, ``integrity``, ``chaos`` — the degradation ladder, the
+  checked dispatch (canaries, invariants, audit) and the deterministic
+  fault-injection plan that exercises both
 - ``campaign``, ``stats``, ``obs``, ``sim``, ``main`` — plans, the
   orchestrator, its stats tree, tracing, exit events and the CLI
   (``python -m shrewd_tpu_torch run|resume``)
 
-Entry points run on the CUDA card unless the caller passes
-``device="cpu"`` (the CLI: ``--platform cpu``).
+Entry points run on the CUDA cards (a mesh over every visible card) unless
+the caller passes ``device="cpu"`` (the CLI: ``--platform cpu``).
 """
 
 __version__ = "0.1.0"

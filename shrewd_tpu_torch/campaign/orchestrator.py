@@ -1,8 +1,10 @@
 """Campaign orchestrator: advance, observe, checkpoint, resume (the port of
-``shrewd_tpu/campaign/orchestrator.py`` on one card).
+``shrewd_tpu/campaign/orchestrator.py``).
 
-Drives a ``CampaignPlan`` batch-by-batch on the CUDA card (or the CPU, when
-the caller asks). Control shape follows the reference's Simulator/exit-event
+Drives a ``CampaignPlan`` batch-by-batch over a device mesh: every visible
+CUDA card by default, the CPU when the caller asks, or the mesh it is
+given (``parallel/mesh.py``; several processes over ``torch.distributed``).
+Control shape follows the reference's Simulator/exit-event
 inversion (SURVEY §3.1: C++ simulates, Python orchestrates): the batch step
 on the card (the structure kernel's ``tally_on_device``: a K1 launch for the
 O3 structures, a step loop for MESI and NoC) is the hot path, and this host
@@ -23,24 +25,28 @@ The tier structures route to their own fault kernels (``kernel_for``):
 ``mesi:*`` and ``noc:*`` once per plan, on a seeded coherence torture
 stream, reported under the ``coherence`` pseudo-simpoint.
 
+A chaos plan (``chaos.py``) injects faults at the hook points the
+orchestrator owns; an elastic context (``parallel/elastic.py``) shares the
+campaign with other worker processes through a lease board.
+
 Not in this slice, each raising ``NotImplementedError`` before any trial
-runs: a device mesh (multi-GPU), a chaos plan, an elastic context, the
-static certification (``analysis.certify``), a persistent compilation
-cache and ``CheckpointSpec`` simpoints.  None is reachable from a default
-plan.
+runs: the static certification (``analysis.certify``), a persistent
+compilation cache and ``CheckpointSpec`` simpoints.  None is reachable
+from a default plan.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Iterator, NamedTuple
 
 import numpy as np
 
+from shrewd_tpu_torch import chaos as chaosmod
 from shrewd_tpu_torch import integrity as integ
 from shrewd_tpu_torch import resilience as resil
 from shrewd_tpu_torch import stats as statsmod
-from shrewd_tpu_torch.chaos import LATER
 from shrewd_tpu_torch.obs import clock as obs_clock
 from shrewd_tpu_torch.obs import export as obs_export
 from shrewd_tpu_torch.obs import trace as obs_trace
@@ -48,15 +54,19 @@ from shrewd_tpu_torch.campaign.plan import (COHERENCE_SP_NAME, CampaignPlan,
                                             CheckpointSpec)
 from shrewd_tpu_torch.ops import classify as C
 from shrewd_tpu_torch.ops.trial import TrialKernel
+from shrewd_tpu_torch.parallel import elastic as elastic_mod
 from shrewd_tpu_torch.parallel import exec_cache
 from shrewd_tpu_torch.parallel import pipeline as pipeline_mod
 from shrewd_tpu_torch.parallel import stopping
 from shrewd_tpu_torch.parallel.campaign import ShardedCampaign
+from shrewd_tpu_torch.parallel.mesh import (make_mesh, round_up_to_mesh,
+                                            same_device)
 from shrewd_tpu_torch.resilience import TIERS
 from shrewd_tpu_torch.sim.exit_event import ExitEvent
 from shrewd_tpu_torch.utils import probes
 from shrewd_tpu_torch.utils import debug, prng
-from shrewd_tpu_torch.utils.device import resolve as resolve_device
+
+LATER = "comes with a later slice of the PyTorch port"
 
 debug.register_flag("Campaign", "orchestrator progress")
 
@@ -260,12 +270,14 @@ def _is_plan_level(structure: str) -> bool:
 class Orchestrator:
     def __init__(self, plan: CampaignPlan, mesh=None,
                  outdir: str | None = None, device=None):
-        """``device=None`` runs on the CUDA card and raises without one;
-        ``device="cpu"`` runs on the CPU.  ``mesh`` must be None: the
-        campaign runs on one device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a device mesh {LATER} (multi-GPU); pass mesh=None")
+        """``mesh`` (``parallel/mesh.py Mesh``): the devices the batches
+        are sharded over.  ``mesh=None`` builds ``make_mesh()`` over every
+        visible CUDA card (it raises without one), or, with
+        ``device="cpu"``, a one-CPU mesh; ``device`` names the one device
+        of such a mesh.  Kernels live on the mesh's first device."""
+        if mesh is not None and device is not None and not any(
+                same_device(d, device) for d in mesh.devices):
+            raise ValueError(f"device {device!r} is not on the mesh {mesh}")
         # every option this slice does not run is refused here, before the
         # first trial (none of them is reachable from a default plan)
         if any(isinstance(sp, CheckpointSpec) for sp in plan.simpoints):
@@ -279,13 +291,24 @@ class Orchestrator:
             raise NotImplementedError(
                 "pipeline.compilation_cache_dir configures jax's persistent "
                 "compilation cache, which the port has no counterpart of")
-        plan.chaos.build()           # raises for a non-empty chaos plan
         self.plan = plan
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = make_mesh(None if device is None else [device])
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         self.outdir = outdir
-        # one device divides every batch size: the effective batch size is
-        # the plan's (the reference rounds it up to its mesh size)
-        self.batch_size = int(plan.batch_size)
+        # the plan's batch_size need not divide the mesh (and cannot be
+        # expected to once elastic re-meshing shrinks the device count):
+        # round up to the next mesh multiple instead of failing at the
+        # first shard_keys call.  PRNG note: the effective batch size is a
+        # pure function of (plan, mesh size), so reproducibility holds —
+        # re-run on the same mesh, or checkpoint/resume, sees the same keys
+        self.batch_size = round_up_to_mesh(plan.batch_size, self.mesh.size)
+        if self.batch_size != plan.batch_size:
+            warnings.warn(
+                f"plan batch_size {plan.batch_size} is not divisible by "
+                f"the {self.mesh.size}-device mesh — rounded up to "
+                f"{self.batch_size}", RuntimeWarning, stacklevel=2)
         # federated single-campaign sharding (plan.shard_index/shard_count):
         # shard i of N serves the round-robin stripe {i, i+N, ...} of the
         # PARENT campaign's batch-id space; this orchestrator's local
@@ -349,6 +372,17 @@ class Orchestrator:
         # one per sync interval
         self._ci_engines: dict[tuple[int, str],
                                pipeline_mod.UntilCIEngine] = {}
+        # deterministic chaos harness (chaos.py): injected faults fire at
+        # hook points in the watchdog/ladder/integrity/checkpoint paths
+        self.chaos: chaosmod.ChaosEngine | None = None
+        eng = plan.chaos.build()
+        if eng is not None:
+            self.attach_chaos(eng)
+        # elastic multi-process context (parallel/elastic.py): when
+        # attached, batches are leased from the shared board instead of
+        # computed unconditionally, and peer results are adopted
+        # bit-identically
+        self._elastic = None
         # probe points (utils/probes; gem5 ProbePoint pattern): listeners
         # attach without the orchestrator knowing who observes.  Payloads
         # are batch-granular — BatchInfo / StructureResult / ckpt path.
@@ -357,8 +391,9 @@ class Orchestrator:
         self.pp_structure = self.probes.add_point("StructureComplete")
         self.pp_checkpoint = self.probes.add_point("Checkpoint")
         self.pp_degraded = self.probes.add_point("BackendDegraded")
-        # abnormal exits (integrity abort) dump the flight recorder here;
-        # first registration wins
+        # abnormal exits (integrity abort, chaos hard kill) dump the flight
+        # recorder here — pre-registered because the kill seam fires with
+        # no outdir in hand; first registration wins
         if outdir and obs_trace.tracer().flight_path is None:
             obs_trace.tracer().set_flight_path(
                 os.path.join(outdir, obs_trace.FLIGHT_NAME))
@@ -366,11 +401,22 @@ class Orchestrator:
 
     # --- chaos / elastic / preemption attachment ---
 
-    def attach_chaos(self, engine) -> None:
-        raise NotImplementedError(f"the chaos engine {LATER}")
+    def attach_chaos(self, engine: chaosmod.ChaosEngine) -> None:
+        """Wire the deterministic fault-injection engine into every hook
+        point this orchestrator owns (watchdog wedges; the per-campaign
+        ladders and engines pick the engine up lazily at construction)."""
+        self.chaos = engine
+        self.watchdog.chaos = engine
 
-    def attach_elastic(self, ctx) -> None:
-        raise NotImplementedError(f"elastic multi-host campaigns {LATER}")
+    def attach_elastic(self, ctx: elastic_mod.ElasticContext) -> None:
+        """Join an elastic campaign: heartbeats start now (liveness must
+        be visible before the first lease claim)."""
+        self._elastic = ctx
+        # a chaos engine built from plan config predates the worker name;
+        # adopt it so worker-targeted faults (kill_worker) aim correctly
+        if self.chaos is not None and not self.chaos.worker:
+            self.chaos.worker = ctx.worker
+        ctx.start()
 
     def request_drain(self) -> None:
         """Ask the drive loop to stop at the next batch boundary, write a
@@ -445,19 +491,25 @@ class Orchestrator:
         rg.leaked_threads = statsmod.Formula(
             "leaked_threads", lambda: self.watchdog.leaked_threads,
             "abandoned watchdog dispatch threads still alive")
-        # chaos and elastic accounting: the engines come with later
-        # slices, so the groups hold the reference's zeros (the stats
-        # layout stays the reference's)
+        # chaos accounting: what the deterministic failure plan injected
+        # and what the stack survived — a chaos run is self-describing
+        # from this group alone (empty dicts when no plan is attached)
         cg = statsmod.Group("chaos")
         self.stats.chaos = cg
         cg.injected = statsmod.Formula(
-            "injected", lambda: {}, "faults injected per kind (chaos plan)")
+            "injected",
+            lambda: dict(self.chaos.injected) if self.chaos else {},
+            "faults injected per kind (chaos plan)")
         cg.survived = statsmod.Formula(
-            "survived", lambda: {},
+            "survived",
+            lambda: dict(self.chaos.survived) if self.chaos else {},
             "injected faults the stack recovered from, per kind")
         cg.dispatches = statsmod.Formula(
-            "dispatches", lambda: 0,
+            "dispatches",
+            lambda: self.chaos.dispatches if self.chaos else 0,
             "batches this process computed under the chaos schedule")
+        # elastic accounting: membership/lease ledgers (zeros when the
+        # campaign is not elastic)
         eg = statsmod.Group("elastic")
         self.stats.elastic = eg
         for name, desc in (
@@ -467,12 +519,15 @@ class Orchestrator:
                 ("leases_revoked", "lost workers' leases revoked"),
                 ("batches_reclaimed",
                  "revoked batches this worker re-dispatched")):
-            setattr(eg, name, statsmod.Formula(name, lambda: 0, desc))
+            setattr(eg, name, statsmod.Formula(
+                name,
+                lambda n=name: (self._elastic.counters()[n]
+                                if self._elastic else 0), desc))
         eg.collective_timeouts = statsmod.Formula(
             "collective_timeouts",
             lambda: sum(c.collective_timeouts
                         for c in self._campaigns.values()),
-            "device-step deadlines (possible lost-peer symptom)")
+            "sharded-step deadlines (possible lost-peer symptom)")
         # result-integrity accounting: the 'and the tallies were audited'
         # ledger (integrity.IntegrityMonitor) — canary outcomes, invariant
         # checks, differential-audit mismatches, quarantine/recovery
@@ -693,7 +748,7 @@ class Orchestrator:
             # dispatch thread that completes late ran only pure device
             # work and cannot corrupt kernel.escapes/taint_trials
             self._campaigns[key] = ShardedCampaign(
-                kernel, None, sub, stratify=stratify,
+                kernel, self.mesh, sub, stratify=stratify,
                 watchdog=self.watchdog,
                 integrity_check=self.icfg.invariants)
         return self._campaigns[key]
@@ -707,7 +762,7 @@ class Orchestrator:
         if key not in self._dispatchers:
             self._dispatchers[key] = resil.dispatcher_for_campaign(
                 self.campaign(sp_idx, structure), self.rcfg,
-                watchdog=self.watchdog)
+                watchdog=self.watchdog, chaos=self.chaos)
         return self._dispatchers[key]
 
     def checked_dispatcher(self, sp_idx: int, sp_name: str, structure: str
@@ -727,7 +782,7 @@ class Orchestrator:
     def engine(self, sp_idx: int, sp_name: str, structure: str
                ) -> pipeline_mod.PipelinedEngine:
         """The pipelined engine for one campaign (parallel/pipeline.py):
-        shares the orchestrator's integrity monitor and perf
+        shares the orchestrator's integrity monitor, chaos engine and perf
         ledger; recovery routes through the same checked dispatcher the
         serial loop uses, so failure semantics are identical."""
         key = (sp_idx, structure)
@@ -738,14 +793,14 @@ class Orchestrator:
                 self._structure_prng_key(sp_idx, structure),
                 self.batch_size, self._ceiling_batches,
                 sync_every=self.pcfg.sync_every, depth=self.pcfg.depth,
-                monitor=self.monitor, perf=self._perf,
+                monitor=self.monitor, chaos=self.chaos, perf=self._perf,
                 sp_name=sp_name, structure=structure)
         return self._engines[key]
 
     def until_ci_engine(self, sp_idx: int, sp_name: str, structure: str
                         ) -> pipeline_mod.UntilCIEngine:
         """The device-resident until-CI engine for one campaign: shares
-        the orchestrator's integrity monitor and perf
+        the orchestrator's integrity monitor, chaos engine and perf
         ledger; its recovery path routes through the same checked
         dispatcher the serial loop uses, re-deriving the stopping
         decision with the HOST rule."""
@@ -759,7 +814,7 @@ class Orchestrator:
                 min_trials=int(self.plan.min_trials),
                 target_halfwidth=float(self.plan.target_halfwidth),
                 confidence=float(self.plan.confidence),
-                perf=self._perf,
+                chaos=self.chaos, perf=self._perf,
                 sp_name=sp_name, structure=structure)
         return self._ci_engines[key]
 
@@ -778,9 +833,10 @@ class Orchestrator:
         dispatch: the plan's ``sync_every`` bounded by the remaining
         batch budget (the ragged final interval before ``max_trials``)
         AND by the half-width trajectory (below), or 0 — the serial
-        per-batch loop — where pipelining cannot apply: sharded
-        campaigns stripe individual batches, and host-resolution /
-        chunked campaigns have no device-accumulable step.  A
+        per-batch loop — where pipelining cannot apply: elastic
+        campaigns lease individual batches, sharded campaigns stripe
+        them, and host-resolution, chunked and multi-process campaigns
+        have no device-accumulable step.  A
         1-batch ragged TAIL of a pipelined campaign still returns 1
         (not 0): the engine may already hold that batch in flight from
         dispatch-ahead, and consuming it there avoids recomputing it
@@ -807,7 +863,8 @@ class Orchestrator:
         unless the engine already holds that batch in flight from
         dispatch-ahead."""
         k = int(self.pcfg.sync_every)
-        if k <= 1 or self.shard_count > 1 or not camp.supports_intervals:
+        if (k <= 1 or self._elastic is not None or self.shard_count > 1
+                or not camp.supports_intervals):
             return 0
         k = max(1, min(k, self._ceiling_batches - st.next_batch))
         need = self._trials_needed(st, camp)
@@ -831,11 +888,13 @@ class Orchestrator:
             self.plan.confidence, self.plan.target_halfwidth,
             self.plan.min_trials)
 
-    def _until_ci_len(self, st: _State, camp: ShardedCampaign) -> int:
+    def _until_ci_len(self, st: _State, camp: ShardedCampaign,
+                      sp_name: str = "", structure: str = "") -> int:
         """Super-interval budget for the device-resident until-CI step
         (``pcfg.until_ci``), or 0 where the stopping rule cannot run on
-        the device (sharded, host-resolution or chunked campaigns, or
-        cumulative counts past the device loop's int32 accumulators).
+        the device (elastic leasing; sharded, host-resolution, chunked or
+        multi-process campaigns; or cumulative counts past the device
+        loop's int32 accumulators).
 
         The planner auto-tunes the effective sync interval from the
         observed half-width trajectory: plan 2× the trials-needed
@@ -848,8 +907,8 @@ class Orchestrator:
         max_trials ceiling and the bounded super-interval budget
         (``pcfg.max_super_interval`` — integrity checks must keep gating
         cumulative deltas at a bounded cadence)."""
-        if (not self.pcfg.until_ci or self.shard_count > 1
-                or not camp.supports_intervals):
+        if (not self.pcfg.until_ci or self._elastic is not None
+                or self.shard_count > 1 or not camp.supports_intervals):
             return 0
         # the device loop counts trials and tallies in int32: every count
         # it can reach is bounded by ceiling_batches*batch_size, so gate
@@ -863,6 +922,20 @@ class Orchestrator:
         k = -(-int(need) // self.batch_size) * 2
         k = 1 << (k - 1).bit_length()              # next power of two, up
         k = max(1, min(k, remaining, int(self.pcfg.max_super_interval)))
+        if self.chaos is not None:
+            # serial parity of the chaos ledgers: a budget that extends
+            # past a scheduled batch-granular fault would arm it even
+            # when convergence lands first — a batch the serial loop
+            # never reaches.  Stop the super-interval just BEFORE the
+            # next fault strictly after the head batch (a head-batch
+            # fault is always consumed); if the campaign is still
+            # running, the next super-interval starts AT the fault's
+            # batch and arms it exactly when the serial loop would
+            nxt = self.chaos.next_batch_fault(
+                st.next_batch, sp_name, structure,
+                min_id=st.next_batch + 1)
+            if nxt is not None:
+                k = min(k, nxt - st.next_batch)
         return k
 
     def _engine_holds(self, key: tuple | None, st: _State) -> bool:
@@ -987,21 +1060,39 @@ class Orchestrator:
                 ckpt = self.checkpoint() if self.outdir else None
                 yield ExitEvent.PREEMPTED, ckpt
                 return
-            # obtain this batch's believed tally through the
-            # integrity-checked resilience ladder (a batch, a sync interval
-            # or an until-CI super-interval)
+            # obtain this batch's believed tally: locally through the
+            # integrity-checked resilience ladder (a batch, a sync
+            # interval or an until-CI super-interval), or — in an elastic
+            # campaign — through the lease board (compute it under a
+            # lease, or adopt a peer's published result; either way the
+            # tally is a pure function of the frozen keys, so the
+            # cumulative state is bit-identical to a single-worker run)
             try:
-                if (s_ci := self._until_ci_len(st, camp)) >= 1:
+                if self._elastic is not None:
+                    doc, adopted = self._elastic_obtain(
+                        sp_idx, sp_name, structure, st, camp)
+                elif (s_ci := self._until_ci_len(st, camp, sp_name,
+                                                 structure)) >= 1:
                     doc = self._compute_until_ci(
                         sp_idx, sp_name, structure, camp, st, s_ci)
+                    adopted = False
                 elif (k_int := self._interval_len(
                         st, camp, (sp_idx, structure))) >= 1:
                     doc = self._compute_interval(
                         sp_idx, sp_name, structure, camp,
                         st.next_batch, k_int)
+                    adopted = False
                 else:
                     doc = self._compute_batch(sp_idx, sp_name, structure,
                                               camp, sk, st.next_batch)
+                    adopted = False
+            except elastic_mod.DrainRequested:
+                # SIGTERM while blocked on a peer's lease: drain NOW (the
+                # scheduler's kill grace is shorter than any claim wait)
+                self.preempted = True
+                ckpt = self.checkpoint() if self.outdir else None
+                yield ExitEvent.PREEMPTED, ckpt
+                return
             except integ.IntegrityError:
                 # unrecoverable corruption: every re-dispatch failed the
                 # checks.  The corrupt batch is NOT counted; leave the
@@ -1023,6 +1114,24 @@ class Orchestrator:
                 if st.strata is None:
                     st.strata = np.zeros_like(sarr)
                 st.strata += sarr
+            # elastic bit-identity guard: the effective batch size is
+            # rounded to the LOCAL mesh, so workers with different device
+            # counts would lease differently-sized (differently-KEYED)
+            # batches under the same batch_id — silently corrupting the
+            # trials accounting and the pure-function-of-coordinates
+            # contract.  Refuse loudly; the fix is a plan batch_size
+            # divisible by every worker's mesh.
+            if adopted and int(doc.get("batch_size",
+                                       self.batch_size)) != self.batch_size:
+                raise elastic_mod.ElasticError(
+                    f"adopted batch {doc.get('batch_id')} of "
+                    f"{sp_name}/{structure} was computed with "
+                    f"batch_size={doc.get('batch_size')} by "
+                    f"{doc.get('worker')!r}, but this worker's effective "
+                    f"batch_size is {self.batch_size} (mesh size "
+                    f"{self.mesh.size}) — elastic workers must agree on "
+                    "the effective batch size; pick a plan batch_size "
+                    "divisible by every worker's mesh")
             tally = np.asarray(doc["tally"], dtype=np.int64)
             tier = int(doc.get("tier", resil.TIER_DEVICE))
             # a pipelined doc covers a whole sync interval: n_batches > 1,
@@ -1076,14 +1185,20 @@ class Orchestrator:
                 "batch_believed", cat="campaign", sp=sp_name,
                 structure=structure, b0=int(prev_nb),
                 n_batches=int(n_batches), trials=int(st.trials),
-                tier=TIERS[tier], adopted=False)
+                tier=TIERS[tier], adopted=bool(adopted))
             debug.dprintf("Campaign", "%s/%s batch %d: trials=%d avf=%.4f"
-                          " tier=%s", sp_name, structure, st.next_batch,
-                          st.trials, avf_live, TIERS[tier])
+                          " tier=%s%s", sp_name, structure, st.next_batch,
+                          st.trials, avf_live, TIERS[tier],
+                          " (adopted)" if adopted else "")
+            # elastic membership changes observed while obtaining this
+            # batch surface as typed events (the re-mesh announcement)
+            if self._elastic is not None:
+                for lost in self._elastic.take_lost():
+                    yield ExitEvent.WORKER_LOST, lost
             info = BatchInfo(
                 sp_name, structure, st.next_batch - 1, st.trials,
                 st.tallies.copy(), avf_live, tier)
-            if tier != resil.TIER_DEVICE:
+            if tier != resil.TIER_DEVICE and not adopted:
                 dinfo = DegradeInfo(sp_name, structure, st.next_batch - 1,
                                     tier, int(doc.get("attempts", 1)))
                 self.pp_degraded.notify(dinfo)
@@ -1177,6 +1292,23 @@ class Orchestrator:
             return batch_id
         return self.shard_index + batch_id * self.shard_count
 
+    def _arm_chaos(self, batch_ids, sp_name: str, structure: str) -> None:
+        """Arm the deterministic chaos schedule for the batches about to
+        be obtained (one id = the serial loop, several = one sync
+        interval — the armed set is the union either way): worker kills
+        fire here at the boundary before any work, and an armed tally
+        corruption lands on the result's believed tally."""
+        if self.chaos is None:
+            return
+        self.chaos.begin_batches(batch_ids, sp_name, structure)
+        self.chaos.maybe_kill()
+        cspec = self.chaos.take_corrupt_tally()
+        if cspec is not None:
+            delta = int(cspec.get("delta", 1))
+            self.monitor.arm_corruption(
+                lambda t, d=delta: t + d, times=1,
+                note=lambda: self.chaos.note_fired("corrupt_tally"))
+
     def _compute_batch(self, sp_idx: int, sp_name: str, structure: str,
                        camp, sk, batch_id: int) -> dict:
         """Dispatch ONE batch through the integrity-checked resilience
@@ -1184,11 +1316,17 @@ class Orchestrator:
         document (the lease board's publish format; the local path uses
         the same shape so accumulation is one code path).
 
+        Chaos hook point: faults armed for this batch fire here — the
+        wedge inside the watchdog, per-tier BackendErrors inside the
+        ladder, tally corruption inside the checked dispatcher, and the
+        worker kill at the boundary before any work.
+
         Sharded campaigns map the local ordinal to its GLOBAL batch id
-        up front: key derivation, integrity evidence, and the published
-        document all speak global coordinates, exactly as the solo run
-        would."""
+        up front: key derivation, chaos arming, integrity evidence, and
+        the published document all speak global coordinates, exactly as
+        the solo run would."""
         batch_id = self._global_batch_id(batch_id)
+        self._arm_chaos([batch_id], sp_name, structure)
         keys = prng.trial_keys(prng.batch_key(sk, batch_id),
                                self.batch_size)
         # per-structure DELTAS of the kernel's shared running escape
@@ -1199,6 +1337,10 @@ class Orchestrator:
         res = self.checked_dispatcher(sp_idx, sp_name, structure
                                       ).tally_batch(
             keys, stratified=camp.stratify, batch_id=batch_id)
+        if self.chaos is not None:
+            # the tally was believed (checks passed, quarantine
+            # recovered): every fault that fired this batch was survived
+            self.chaos.end_batch()
         return {
             "batch_id": int(batch_id),
             "batch_size": int(self.batch_size),
@@ -1218,11 +1360,21 @@ class Orchestrator:
         engine.  Same believed-result document shape as ``_compute_batch``
         plus ``n_batches``/``tiers``; integrity checks run on the interval
         deltas, and any failure recovers through the serial per-batch
-        ladder on frozen keys (parallel/pipeline.py)."""
+        ladder on frozen keys (parallel/pipeline.py).
+
+        Chaos hook point: batch-granular faults scheduled on ANY of the
+        interval's batch ids arm here and fire at the pipelined
+        equivalents of their serial hook points (the wedge at
+        materialization under the armed deadline, tier errors at consume
+        time, tally corruption on the interval result, the worker kill at
+        the interval boundary before any work)."""
+        self._arm_chaos(range(b0, b0 + k), sp_name, structure)
         esc0 = int(getattr(camp.kernel, "escapes", 0))
         tt0 = int(getattr(camp.kernel, "taint_trials", 0))
         doc = self.engine(sp_idx, sp_name, structure).obtain(
             b0, k, stratified=camp.stratify)
+        if self.chaos is not None:
+            self.chaos.end_batch()
         doc["escapes"] = int(getattr(camp.kernel, "escapes", 0)) - esc0
         doc["taint_trials"] = (int(getattr(camp.kernel, "taint_trials", 0))
                                - tt0)
@@ -1234,8 +1386,15 @@ class Orchestrator:
         batches; the device decides how many it consumes).  Same believed-
         result document shape as ``_compute_interval`` — ``n_batches`` is
         the device-decided consumed count, recorded into the checkpoint
-        through the ordinary accumulation path."""
+        through the ordinary accumulation path.
+
+        Chaos hook point: batch-granular faults scheduled on ANY of the
+        budgeted batch ids arm here (the union, like the interval path) —
+        the wedge fires under the armed deadline at materialization, tier
+        errors at consume time, tally corruption on the super-interval
+        result, the worker kill at the boundary before any work."""
         b0 = st.next_batch
+        self._arm_chaos(range(b0, b0 + S), sp_name, structure)
         esc0 = int(getattr(camp.kernel, "escapes", 0))
         tt0 = int(getattr(camp.kernel, "taint_trials", 0))
         # the stratified rule applies iff the strata history covers every
@@ -1248,10 +1407,88 @@ class Orchestrator:
         doc = self.until_ci_engine(sp_idx, sp_name, structure).obtain(
             b0, S, st.tallies, st.strata if camp.stratify else None,
             strat_rule)
+        if self.chaos is not None:
+            # arming advanced the per-process dispatch counter by the
+            # BUDGET S, but the device consumed possibly fewer batches —
+            # the serial loop advances it only per batch computed, so
+            # rewind the difference or later ``after_dispatches``
+            # triggers fire at shifted campaign coordinates (the
+            # fused-vs-serial chaos-ledger parity contract; the planner
+            # clamp already keeps un-consumed triggers from ARMING)
+            self.chaos.dispatches -= S - int(doc.get("n_batches", S))
+            self.chaos.end_batch()
         doc["escapes"] = int(getattr(camp.kernel, "escapes", 0)) - esc0
         doc["taint_trials"] = (int(getattr(camp.kernel, "taint_trials", 0))
                                - tt0)
         return doc
+
+    def _elastic_obtain(self, sp_idx: int, sp_name: str, structure: str,
+                        st: _State, camp) -> tuple[dict, bool]:
+        """One batch through the lease board: adopt the published result
+        for ``st.next_batch`` or claim and compute it; while blocked on a
+        live peer, speculate up to ``lookahead`` batches ahead (their
+        published results are adopted when accumulation reaches them).
+        Lost peers' leases are revoked en route (ElasticContext.obtain)."""
+        ctx = self._elastic
+        sk = self._structure_prng_key(sp_idx, structure)
+        target = st.next_batch
+        spec_state = {"next": target + 1}
+
+        def compute_for(batch_id):
+            return self._compute_batch(sp_idx, sp_name, structure, camp,
+                                       sk, batch_id)
+
+        # speculation never runs past the last batch the stopping rule
+        # could possibly consume (the max_trials ceiling) — batches past
+        # it would be fully computed and never accumulated by anyone
+        ceiling = -(-int(self.plan.max_trials) // self.batch_size)
+
+        def speculate() -> bool:
+            while spec_state["next"] < min(target + 1 + ctx.cfg.lookahead,
+                                           ceiling):
+                b = spec_state["next"]
+                spec_state["next"] += 1
+                k = ctx.key(sp_name, structure, b)
+                if ctx.board.done(k) is None and ctx.board.claim(k):
+                    ctx.claimed += 1
+                    d = compute_for(b)
+                    d["worker"] = ctx.worker
+                    ctx.board.publish(k, d)
+                    return True
+            return False
+
+        key = ctx.key(sp_name, structure, target)
+        for attempt in range(3):
+            doc, adopted = ctx.obtain(key, lambda: compute_for(target),
+                                      speculate,
+                                      should_abort=lambda: self._drain)
+            if not (adopted and self.icfg.invariants):
+                return doc, adopted
+            # an adopted result passes the same cheap host-side tally
+            # invariants every locally-computed batch passed before being
+            # believed (the computing peer checked them, but a stale or
+            # buggy peer build publishes with a valid checksum — validate
+            # at the trust boundary, not just at the producer)
+            viol = integ.tally_violations(
+                doc.get("tally"), int(doc.get("batch_size",
+                                              self.batch_size)),
+                doc.get("strata"))
+            if not viol:
+                return doc, adopted
+            self.monitor.invariant_violations += 1
+            self.monitor.record_quarantine({
+                "kind": "adopted", "simpoint": sp_name,
+                "structure": structure, "batch_id": int(target),
+                "worker": doc.get("worker"), "problems": [
+                    {"kind": "invariant", "violations": viol}],
+                "fatal": attempt >= 2})
+            debug.dprintf(
+                "Elastic", "adopted %s from %s failed invariants (%s) — "
+                "retracting and recomputing", key, doc.get("worker"), viol)
+            ctx.board.retract(key)
+        raise integ.IntegrityError(
+            f"{sp_name}/{structure} batch {target}: adopted result failed "
+            "invariants on every retract/recompute attempt")
 
     # --- outputs (the m5out contract) ---
 
@@ -1302,10 +1539,10 @@ class Orchestrator:
         doc = {
             "version": CKPT_VERSION,
             "plan": self.plan.to_dict(),
-            # the EFFECTIVE batch size (the reference rounds the plan's up
-            # to its mesh): batch PRNG keys derive from it, so a resume
-            # that rounds differently would silently mix two incompatible
-            # key streams — resume() validates this instead
+            # the EFFECTIVE batch size (plan batch_size rounded up to the
+            # mesh): batch PRNG keys derive from it, so a resume on a
+            # mesh that rounds differently would silently mix two
+            # incompatible key streams — resume() validates this instead
             "batch_size": int(self.batch_size),
             "state": state_doc,
             # v5: the integrity monitor (mismatch ledger, canary/invariant
@@ -1342,6 +1579,21 @@ class Orchestrator:
                 # again after its rename)
                 resil.fsync_dir(ckpt_dir)
         resil.write_json_atomic(path, doc)
+        if self.chaos is not None:
+            spec = self.chaos.take_torn_checkpoint()
+            if spec is not None:
+                # chaos checkpoint hook: corrupt the freshly-written bytes
+                # the way a power loss would, then prove on the spot that
+                # the v5 fallback chain still yields a valid document
+                chaosmod.tear_file(path,
+                                   float(spec.get("keep_fraction", 0.5)))
+                try:
+                    self.load_checkpoint_doc(ckpt_dir)
+                    self.chaos.note_survived("torn_checkpoint")
+                except ValueError:
+                    debug.dprintf(
+                        "Chaos", "torn checkpoint NOT recoverable (no "
+                        "valid fallback in %s)", ckpt_dir)
         return ckpt_dir
 
     @staticmethod
@@ -1374,7 +1626,9 @@ class Orchestrator:
     def resume(cls, ckpt_dir: str, mesh=None, outdir: str | None = None,
                device=None) -> "Orchestrator":
         """Rebuild an orchestrator from the newest valid checkpoint in
-        ``ckpt_dir`` (either package's), on ``device`` (None: the card)."""
+        ``ckpt_dir`` (either package's), on ``mesh`` or ``device`` (as
+        the constructor takes them).  A mesh that rounds the plan's batch
+        size differently from the checkpointed run is refused."""
         doc = cls.load_checkpoint_doc(ckpt_dir)
         upgrade_checkpoint(doc)
         plan = CampaignPlan.from_dict(doc["plan"])
@@ -1382,11 +1636,12 @@ class Orchestrator:
         want = doc.get("batch_size")
         if want is not None and int(want) != orch.batch_size:
             raise ValueError(
-                f"checkpoint ran with effective batch_size {want} but the "
-                f"plan's is {plan.batch_size} on one device — batch PRNG "
-                "keys would diverge from the checkpointed history (a "
-                "checkpoint of the reference on a mesh whose size does not "
-                "divide the plan's batch size cannot resume here)")
+                f"checkpoint ran with effective batch_size {want} but "
+                f"this {orch.mesh.size}-device mesh rounds the plan's "
+                f"{plan.batch_size} to {orch.batch_size} — batch PRNG "
+                "keys would diverge from the checkpointed history; "
+                "resume on a mesh size that divides the original batch "
+                "size (or keep plan batch_size a multiple of both)")
         for spn, per_structure in doc["state"].items():
             for s, st_doc in per_structure.items():
                 orch.state[(spn, s)] = _State.from_dict(st_doc)

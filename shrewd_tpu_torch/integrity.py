@@ -19,9 +19,8 @@ this module is the campaign-embedded analog, three defenses deep:
 2. **Tally invariant enforcement** — per-batch checks that outcome classes
    sum to the trial count, tallies are non-negative/finite/integral,
    cumulative counters are monotone across batches, and each shard's local
-   tally is consistent with the summed one (``shard_sum_violations``; on
-   one card the local tally is the sum, and the campaign only counts the
-   check).
+   tally is consistent with the summed one (``shard_sum_violations``,
+   over the mesh's real shards, ``parallel/campaign.py``).
    Violations raise ``ExitEvent.INTEGRITY_VIOLATION`` with a
    persisted evidence record.
 3. **Continuous differential audit** — a sampled fraction of each batch
@@ -575,6 +574,26 @@ class CheckedDispatcher:
                                        seed_keys)
                          if self.cfg.canary_trials > 0 else None)
         self._auditor = None
+        # shard-vs-sum accounting lives on the campaign (the check runs
+        # inside tally_batch); deltas sync into the shared monitor here
+        self._shard_seen = (getattr(campaign, "shard_checks", 0),
+                            getattr(campaign, "shard_mismatches", 0))
+
+    def _sync_shard_counters(self, batch_id: int) -> None:
+        camp, mon = self.campaign, self.monitor
+        sc = getattr(camp, "shard_checks", 0)
+        sm = getattr(camp, "shard_mismatches", 0)
+        dm = sm - self._shard_seen[1]
+        if dm:
+            # a shard-sum mismatch raises inside the device tier, so the
+            # resilience ladder already re-ran the batch elsewhere — count
+            # it and surface the evidence, no extra requeue needed
+            mon.invariant_violations += dm
+            mon._pending_events.append({
+                "kind": "shard", "simpoint": self.sp_name,
+                "structure": self.structure, "batch_id": int(batch_id),
+                "mismatches": int(dm), "recovered_by_ladder": True})
+        self._shard_seen = (sc, sm)
 
     # --- internals ------------------------------------------------------
 
@@ -684,6 +703,11 @@ class CheckedDispatcher:
         failure evidence (empty = believed)."""
         return self._check(res, n_trials, batch_id=batch_id)
 
+    def sync_shard_counters(self, batch_id: int) -> None:
+        """Fold the campaign's shard-vs-sum counters into the shared
+        monitor (evidence attributed to ``batch_id``)."""
+        self._sync_shard_counters(batch_id)
+
     def audit_batch(self, keys, batch_id: int) -> None:
         """Differential-audit one batch's keys under its own
         deterministic sample (resume and pipelined runs re-audit the
@@ -709,6 +733,7 @@ class CheckedDispatcher:
                     guard._tt = getattr(self.campaign.kernel,
                                         "taint_trials", None)
             if not problems:
+                self._sync_shard_counters(batch_id)
                 if requeued:
                     mon.recovered += 1
                     mon._pending_events.append({
@@ -756,13 +781,15 @@ def checked_dispatcher_for(dispatcher, campaign, monitor, sp_name: str,
     """Build the checked wrapper for one campaign.  ``structure_key`` is
     the campaign's frozen PRNG structure key; seed-canary keys derive from
     it under the reserved CANARY_BATCH_ID (disjoint from all real
-    batches); the port's campaign runs on one device, so the count needs
-    no rounding to a mesh."""
+    batches), rounded up to the mesh size so every tier can shard them."""
     seed_keys = None
     if monitor.cfg.canary_trials > 0 and structure_key is not None:
+        from shrewd_tpu_torch.parallel.mesh import round_up_to_mesh
         from shrewd_tpu_torch.utils import prng
 
-        n = int(monitor.cfg.canary_trials)
+        mesh = getattr(campaign, "mesh", None)
+        n = round_up_to_mesh(monitor.cfg.canary_trials,
+                             mesh.size if mesh is not None else 1)
         seed_keys = prng.trial_keys(
             prng.batch_key(structure_key, CANARY_BATCH_ID), n)
     return CheckedDispatcher(dispatcher, campaign, monitor, sp_name,

@@ -1,12 +1,17 @@
 """The framework CLI — the ``m5.main`` analog (the port of
 ``shrewd_tpu/main.py``).
 
-``python -m shrewd_tpu_torch <subcommand>`` runs a campaign on the CUDA
-card, with the reference's flags.  A campaign is reproducible from its
-config dump alone:
+``python -m shrewd_tpu_torch <subcommand>`` runs a campaign over every
+visible CUDA card, with the reference's flags.  A campaign is reproducible
+from its config dump alone:
 
     python -m shrewd_tpu_torch run plan.json --outdir out --debug-flags Campaign
     python -m shrewd_tpu_torch resume out/campaign_ckpt --outdir out2
+    python -m shrewd_tpu_torch run plan.json --elastic-dir coord --worker w0
+
+(the last one, started once per worker process with the same plan and
+directory, shares the campaign over a lease board; ``--chaos-plan`` adds a
+deterministic failure schedule).
 
 ``--platform cpu`` runs on the CPU instead.  Run artifacts land in
 ``--outdir`` as ``config.json`` / ``stats.txt`` / ``stats.json``
@@ -102,11 +107,20 @@ def _apply_resilience_overrides(orch, args) -> None:
 def _apply_chaos_elastic(orch, args) -> None:
     """--chaos-plan attaches the deterministic failure schedule;
     --elastic-dir joins (or starts) an elastic multi-host campaign over a
-    shared coordination directory."""
+    shared coordination directory.  ``--worker`` names this process in
+    both (default ``w<pid>``)."""
+    worker = getattr(args, "worker", "") or f"w{os.getpid()}"
     if getattr(args, "chaos_plan", None):
-        orch.attach_chaos(args.chaos_plan)       # raises: a later slice
+        from shrewd_tpu_torch.chaos import ChaosEngine
+
+        orch.plan.chaos.plan_path = args.chaos_plan   # reproducible dump
+        orch.attach_chaos(ChaosEngine.from_path(args.chaos_plan,
+                                                worker=worker))
     if getattr(args, "elastic_dir", None):
-        orch.attach_elastic(args.elastic_dir)    # raises: a later slice
+        from shrewd_tpu_torch.parallel.elastic import ElasticContext
+
+        orch.attach_elastic(ElasticContext(args.elastic_dir, worker,
+                                           orch.plan.elastic))
 
 
 def _drive(orch, args) -> int:
@@ -114,19 +128,25 @@ def _drive(orch, args) -> int:
     Simulator.run analog: typed exit events → handlers,
     ``python/gem5/simulate/simulator.py:530``)."""
     _apply_resilience_overrides(orch, args)
-    _apply_chaos_elastic(orch, args)
-    # graceful preemption: SIGTERM/SIGINT finish the in-flight batch,
-    # write a resumable checkpoint, and exit rc 4 (distinct from the
-    # budget-abort rc 3 so schedulers can tell drain from distrust)
-    restore_signals = orch.install_signal_handlers()
-    t0 = time.monotonic()
-    ckpt_every = orch.plan.checkpoint_every
+    restore_signals = None
     try:
-        n_batches = _drive_events(orch, ckpt_every)
+        _apply_chaos_elastic(orch, args)
+        # graceful preemption: SIGTERM/SIGINT finish the in-flight batch,
+        # write a resumable checkpoint, and exit rc 4 (distinct from the
+        # budget-abort rc 3 so schedulers can tell drain from distrust)
+        restore_signals = orch.install_signal_handlers()
+        t0 = time.monotonic()
+        n_batches = _drive_events(orch, orch.plan.checkpoint_every)
     finally:
         # the second-signal KeyboardInterrupt escape hatch (and any
-        # ladder error) must still restore the handlers
-        restore_signals()
+        # ladder/elastic error) must still restore handlers and leave the
+        # elastic membership gracefully — a stale heartbeat file would
+        # make peers burn a full timeout declaring us lost and pollute
+        # the shared coordination dir for later campaigns
+        if restore_signals is not None:
+            restore_signals()
+        if orch._elastic is not None:
+            orch._elastic.stop()      # graceful leave: peers see it
     orch.write_outputs()
     return _drive_outputs(orch, args, t0, n_batches)
 
@@ -168,6 +188,10 @@ def _drive_events(orch, ckpt_every: int) -> int:
             _log(f"ESCALATION BUDGET EXCEEDED: {e.rate:.1%} of trials ran "
                  f"below the device tier (threshold {e.threshold:.1%}, "
                  f"action={e.action}) — tiers {e.tier_trials}")
+        elif event == ExitEvent.WORKER_LOST:
+            _log(f"WORKER LOST: {payload.worker} (lease {payload.batch_key}"
+                 f" revoked; survivors: "
+                 f"{', '.join(payload.survivors) or 'this worker'})")
         elif event == ExitEvent.PREEMPTED:
             _log(f"PREEMPTED: drained to checkpoint "
                  f"{payload or '(no outdir — progress lost)'}")
@@ -195,6 +219,13 @@ def _drive_outputs(orch, args, t0, n_batches) -> int:
              f"audited ({mon.ledger.mismatched} mismatched), "
              f"{mon.quarantined} batches quarantined "
              f"({mon.recovered} recovered)")
+    chaos = orch.chaos
+    if chaos is not None and chaos.injected:
+        _log(f"chaos: injected {dict(chaos.injected)}, "
+             f"survived {dict(chaos.survived)}")
+    el = orch._elastic
+    if el is not None:
+        _log(f"elastic ({el.worker}): {el.counters()}")
     if orch.preempted:
         _log(f"campaign PREEMPTED after {n_batches} batches in "
              f"{time.monotonic() - t0:.1f}s"
@@ -288,11 +319,14 @@ def main(argv: list[str] | None = None) -> int:
                        help="chaos-plan JSON file: a deterministic "
                             "failure schedule injected at the watchdog/"
                             "ladder/integrity/checkpoint hook points "
-                            "(a later slice of the port)")
+                            "(shrewd_tpu_torch/chaos.py)")
     resil.add_argument("--elastic-dir", default=None,
                        help="shared coordination directory for an elastic "
-                            "multi-host campaign (heartbeats + batch "
-                            "leases; a later slice of the port)")
+                            "multi-process campaign (heartbeats + batch "
+                            "leases; parallel/elastic.py).  Start N "
+                            "processes with the same plan and dir; lost "
+                            "workers' batches are re-dispatched by "
+                            "survivors bit-identically")
     resil.add_argument("--worker", default=None,
                        help="worker name for elastic/chaos runs "
                             "(default: w<pid>)")

@@ -620,6 +620,9 @@ class MesiKernel(TierKernel):
         loads, mem = mesi_replay(trace, cfg, self.init_mem, gold)
         self.golden_loads, self.golden_mem = loads[0], mem[0]
 
+    def _build_on(self, device) -> "MesiKernel":
+        return MesiKernel(self.trace, self.cfg, self.init_mem, device=device)
+
     def sample_batch(self, keys: torch.Tensor, structure: str) -> MesiFault:
         """(B, 2) keys → a MesiFault batch of int32 tensors on this
         kernel's device."""

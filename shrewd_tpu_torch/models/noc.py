@@ -460,6 +460,9 @@ class NocKernel(TierKernel):
         self.pipeline_lanes = 0
         self.pipeline_steps = 0
 
+    def _build_on(self, device) -> "NocKernel":
+        return NocKernel(self.msgs, self.cfg, self.fm, device=device)
+
     def sample_batch(self, keys: torch.Tensor, structure: str = "router"
                      ) -> NocFault:
         """(B, 2) keys → a NocFault batch of int32 tensors on this

@@ -342,6 +342,9 @@ class CacheKernel(TierKernel):
         self._data_consumed = _PROT_TABLE[cfg.data_protection]
         self._tag_consumed = _PROT_TABLE[cfg.tag_protection]
 
+    def _build_on(self, device) -> "CacheKernel":
+        return CacheKernel(self.tl, self.cfg, device=device)
+
     # -- classification (batched) --
 
     def _classify_data(self, f: CacheFault) -> torch.Tensor:

@@ -28,6 +28,23 @@ class TierKernel:
     def strata_of(self, faults) -> torch.Tensor:
         raise NotImplementedError
 
+    def _build_on(self, device) -> "TierKernel":
+        """A new kernel of the same inputs on ``device``."""
+        raise NotImplementedError
+
+    def on_device(self, device) -> "TierKernel":
+        """This kernel's replica on ``device`` (itself on its own device),
+        built once per device and cached: a mesh shard's kernel."""
+        from shrewd_tpu_torch.parallel.mesh import same_device
+
+        if same_device(device, self.device):
+            return self
+        reps = self.__dict__.setdefault("_replicas", {})
+        key = str(torch.device(device))
+        if key not in reps:
+            reps[key] = self._build_on(device)
+        return reps[key]
+
     def sampler(self, structure: str | None = None):
         kernel, structure = self, structure or self.default_structure
 

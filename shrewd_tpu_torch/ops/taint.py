@@ -502,11 +502,17 @@ def taint_fast_plain(gold: GoldenRecord, tr: TraceArrays,
     """The plain PyTorch version of the fast-pass kernel
     (``ops/taint_cuda.py taint_fast_cuda``, same signature): the scan
     without the memory timeline, so loads at non-golden addresses
-    escape."""
+    escape.  ``taint_fast_plain.card_calls`` counts its calls on card
+    tensors, where the kernel's wrapper never calls it."""
+    if faults.kind.device.type != "cpu":
+        taint_fast_plain.card_calls += 1
     return taint_replay(gold._replace(mem_t=None), tr, faults, shadow_cov,
                         k=k, compare_regs=compare_regs,
                         setup=(gold_at_fault, alt1, alt2),
                         may_latch=may_latch)
+
+
+taint_fast_plain.card_calls = 0
 
 
 def taint_chunk(gold: GoldenRecord, tr: TraceArrays,

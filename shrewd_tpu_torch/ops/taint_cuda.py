@@ -39,6 +39,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -56,6 +57,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 KS = (4, 16)          # set capacities the source instantiates
 _lib = None
+_count_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -321,7 +323,8 @@ def taint_fast_cuda(gold: GoldenRecord, tr: TraceArrays,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"taint_fast kernel launch failed: cudaError {rc}")
-    taint_fast_cuda.launches += 1
+    with _count_lock:                # mesh shards launch from threads
+        taint_fast_cuda.launches += 1
     return TaintResult(outcome=outcome, escaped=escaped != 0,
                        overflow=overflow != 0, tags=tags.T.to(torch.int64),
                        vals=vals.T.to(torch.int64) & M32, steps=steps)
@@ -374,7 +377,8 @@ def taint_chunk_cuda(gold: GoldenRecord, tr: TraceArrays,
         int(may_latch), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"taint_chunk kernel launch failed: cudaError {rc}")
-    taint_chunk_cuda.launches += 1
+    with _count_lock:                # mesh shards launch from threads
+        taint_chunk_cuda.launches += 1
     return (tags.T.to(torch.int64), vals.T.to(torch.int64) & M32, steps,
             (bits & 1) != 0, (bits & 2) != 0, (bits & 4) != 0, escaped != 0,
             overflow != 0)

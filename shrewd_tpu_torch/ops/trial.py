@@ -90,6 +90,7 @@ class TrialKernel:
         self._golden_rec = None
         self._stream = None
         self._samplers: dict = {}
+        self._replicas: dict = {}       # on_device: one per other device
         # VA-space memory map of a lifted trace: a later slice; the chunked
         # path (ops/chunked.py) reads it as the JAX package's does
         self.memmap = None
@@ -111,6 +112,20 @@ class TrialKernel:
             cfg.priority_to_shadow = priority_to_shadow
         return TrialKernel(self.trace, cfg, self.minor_cfg,
                            device=self.device)
+
+    def on_device(self, device) -> "TrialKernel":
+        """This kernel's replica on ``device`` (itself on its own device),
+        built once per device and cached: a mesh shard's kernel.  Same
+        window and configs, so the same outcomes for the same keys."""
+        from shrewd_tpu_torch.parallel.mesh import same_device
+
+        if same_device(device, self.device):
+            return self
+        key = str(torch.device(device))
+        if key not in self._replicas:
+            self._replicas[key] = TrialKernel(self.trace, self.cfg,
+                                              self.minor_cfg, device=device)
+        return self._replicas[key]
 
     # --- dense path ---------------------------------------------------------
 

@@ -1,46 +1,61 @@
-"""The campaign step, its interval and until-CI steps, and the run-until-CI
-loop on one device (port of ``shrewd_tpu/parallel/campaign.py`` for one
-card).
+"""The sharded campaign step, its interval and until-CI steps, and the
+run-until-CI loop (port of ``shrewd_tpu/parallel/campaign.py``).
 
-``ShardedCampaign`` binds a ``TrialKernel`` and a structure and turns a
-batch of per-trial keys into an outcome tally; ``run_until_ci`` draws
-batches from the campaign's key tree until the AVF interval is tight enough
-(``parallel/stopping.py``).  The routes of ``tally_batch`` are the
-reference's:
+``ShardedCampaign`` binds a kernel, a device mesh (``parallel/mesh.py``) and
+a structure and turns a batch of per-trial keys into an outcome tally;
+``run_until_ci`` draws batches from the campaign's key tree until the AVF
+interval is tight enough (``parallel/stopping.py``).  Each shard of the
+batch runs on its own mesh device, through the kernel's replica there
+(``kernel.on_device``).  Shards on distinct devices run in threads of
+their own, one per device, so that the host syncs inside one shard's step
+(the fast pass's escape compaction, the dense step loop) do not hold the
+other cards back; shards that share a device (the CPU listed n times) run
+one after another.  The local shards' tallies are summed, and the sum is
+reduced across processes with ``all_reduce(SUM)`` (``Mesh.all_reduce``) —
+the reference's ``shard_map`` body plus its ``psum``.  The routes of ``tally_batch`` are
+the reference's:
 
 - ``resolution="device"`` (the default, for ``replay_kernel`` taint and
-  hybrid): the budgeted path, ``TrialKernel.run_keys_device``;
-- ``resolution="host"``: the fast pass, then unbounded exact resolution of
-  every escaped lane (``TrialKernel.resolve_escapes``);
-- ``replay_kernel="dense"``: every lane through the dense scan;
+  hybrid): the budgeted path, ``TrialKernel.tally_on_device`` per shard.
+  The escape budget applies per shard, as in the reference, so a batch
+  split over more shards may resolve more lanes;
+- ``resolution="host"``: the fast pass per shard, then unbounded exact
+  resolution of every escaped lane of this process's rows
+  (``TrialKernel.resolve_escapes``);
+- ``replay_kernel="dense"`` (and the tier kernels): every lane through the
+  kernel's own outcomes, per shard;
 - ``chunked=`` (an ``ops.chunked.ChunkedCampaign`` over the same kernel):
-  outcomes from the chunked wave driver, the SimPoint-scale route.
+  outcomes from the chunked wave loop on each shard's device, the
+  SimPoint-scale route (host-orchestrated; its per-trial outcomes are the
+  dense protocol's, so the tally does not depend on the sharding).
+
+With ``integrity_check=True`` every device step (the budgeted, dense,
+interval and until-CI steps, as in the reference) checks the shard-vs-sum
+invariant over the real shards: every process's local tallies are gathered
+(``Mesh.all_gather``) and must sum to the reduced tally
+(``integrity.shard_sum_violations``); a mismatch counts in
+``shard_mismatches`` and raises ``IntegrityError``.
 
 The pipelined engines (``parallel/pipeline.py``) drive two multi-batch
 steps.  The reference's are jitted programs (a ``lax.scan`` over S batches
 plus a ``psum``; a ``lax.while_loop`` that evaluates the stopping rule on
-the device); here each is a loop over S batches that accumulates the
-tallies on the kernel's device (``TrialKernel.tally_on_device``), and only
-``materialize_interval`` / ``materialize_until_ci`` copy them to the host.
-The until-CI step evaluates the float32 rule on the device after each
-batch and reads one ``done`` flag; it runs no batch past the boundary
-where the rule fires.  The batch step itself still syncs inside (the
-fast pass's escape compaction), so dispatch returns once the device work
-is done and the watchdog's deadline, armed at dispatch, is enforced at
+the device); here each is a loop over S batches that accumulates each
+shard's tallies on its device, and only ``materialize_interval`` /
+``materialize_until_ci`` copy them to the host.  The until-CI step sums
+the shards' batch tallies on the first mesh device, evaluates the float32
+rule there after each batch and reads one ``done`` flag; it runs no batch
+past the boundary where the rule fires.  Like the reference's, both gate
+on a single process.  The batch step itself still syncs inside (the fast
+pass's escape compaction), so dispatch returns once the device work is
+done and the watchdog's deadline, armed at dispatch, is enforced at
 materialization by waiting on a CUDA event.
-
-The campaign runs on the kernel's own device: ``mesh`` must be None.  The
-reference's multi-device sharding comes with a later slice.  With
-``integrity_check=True`` every device step counts one shard-vs-sum check
-(``shard_checks``, which ``stats.json`` reports as the reference does):
-on one device the shard-local accumulator is the total, so the check
-itself (``integrity.shard_sum_violations``) can never fail and is not
-run until the multi-device slice gives a real local accumulator.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -49,36 +64,46 @@ import torch
 from shrewd_tpu_torch.ops import classify as C
 from shrewd_tpu_torch.ops.trial import N_STRATA
 from shrewd_tpu_torch.parallel import stopping
+from shrewd_tpu_torch.parallel.mesh import (make_mesh, shard_batch_stack,
+                                            shard_keys)
 from shrewd_tpu_torch.resilience import TIERS, DispatchTimeout
 from shrewd_tpu_torch.utils import debug, prng
 
 debug.register_flag("CampaignStep", "per-batch campaign steps")
 
-_LATER = "comes with a later slice of the PyTorch port"
+
+def _chunked_on(chunked, kernel):
+    """The chunked campaign for ``kernel`` (a shard's replica): the same
+    chunking and preprocessed window."""
+    if kernel is chunked.kernel:
+        return chunked
+    from shrewd_tpu_torch.ops.chunked import ChunkedCampaign
+
+    return ChunkedCampaign(kernel, chunk=chunked.S, max_batch=chunked.B,
+                           carry_horizon=chunked.carry_horizon,
+                           engine=chunked.engine, window=chunked.window)
 
 
 class ShardedCampaign:
-    """One (kernel, structure) campaign on the kernel's device.
+    """One (kernel, structure) campaign over a device mesh.
 
     Honors the kernel's ``replay_kernel`` config: "dense" runs the dense
     protocol; "taint"/"hybrid" take the budgeted device resolution by
     default, or the host-driven exact path with ``resolution="host"``.
     ``stratify=True`` offers ``tally_batch_stratified`` for the
-    post-stratified stopping rule.
+    post-stratified stopping rule.  ``mesh=None`` is a one-device mesh on
+    the kernel's device.
 
     ``watchdog`` (``resilience.DeviceWatchdog``, optional): every device
-    step runs through ``watchdog.call`` so a wedged step surfaces as
-    ``DispatchTimeout`` in bounded time; a timed-out step raises before any
-    host counter moves.  ``integrity_check``: see the module docstring."""
+    step, its collective included, runs through ``watchdog.call`` so a
+    wedged step (or a lost peer) surfaces as ``DispatchTimeout`` in
+    bounded time; a timed-out step raises before any host counter moves.
+    ``integrity_check``: see the module docstring."""
 
     def __init__(self, kernel, mesh, structure: str,
                  resolution: str = "device", stratify: bool = False,
                  watchdog=None, integrity_check: bool = False,
                  chunked=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a device mesh {_LATER} (multi-GPU); pass mesh=None to run "
-                f"on the kernel's own device")
         if resolution not in ("device", "host"):
             raise ValueError(f"unknown resolution {resolution!r}")
         if stratify and not hasattr(kernel, "run_keys_stratified"):
@@ -92,20 +117,27 @@ class ShardedCampaign:
             # with tally_batch on over-budget batches
             raise ValueError("stratify=True requires resolution='device'")
         self.kernel = kernel
-        self.mesh = mesh
+        self.mesh = mesh if mesh is not None else make_mesh([kernel.device])
         self.structure = structure
         self.resolution = resolution
         self.stratify = stratify
         self.watchdog = watchdog
         self.integrity_check = integrity_check
         self.chunked = chunked
-        self.shard_checks = 0        # shard-vs-sum verifications counted
-        # deadlines on a device step (the reference counts them as the
-        # first symptom of a lost peer in a multi-host mesh)
+        # each local shard's kernel: the kernel itself on its own device,
+        # its cached replica on any other
+        self.kernels = [kernel.on_device(d) for d in self.mesh.devices]
+        self.chunkeds = (None if chunked is None else
+                         [_chunked_on(chunked, k) for k in self.kernels])
+        self.shard_checks = 0        # shard-vs-sum verifications run
+        self.shard_mismatches = 0    # ... that failed (each also raises)
+        # deadlines on a device step: in a multi-process mesh the step is
+        # a collective, and a deadline may mean a lost peer
         self.collective_timeouts = 0
-        # device→host copies made by this campaign's steps (a tally with
-        # its unresolved count is one copy; the until-CI step adds one per
-        # stop-flag read): PerfStats.host_roundtrips_saved reads it
+        # device→host copies made by this campaign's steps (a shard's
+        # tally with its unresolved count is one copy; the until-CI step
+        # adds one per stop-flag read): PerfStats.host_roundtrips_saved
+        # reads it
         self.transfers = 0
         self.mode = getattr(getattr(kernel, "cfg", None),
                             "replay_kernel", "dense")
@@ -120,7 +152,7 @@ class ShardedCampaign:
     def _dispatch(self, work):
         """One device step, through the watchdog when configured.  ``work``
         ends with its result on the host, so the deadline covers the
-        device work as well as the launch."""
+        device work and the collective as well as the launch."""
         if self.watchdog is None:
             return work()
         try:
@@ -158,20 +190,94 @@ class ShardedCampaign:
             self.collective_timeouts += 1
             raise
 
-    def _device_tally(self, keys: torch.Tensor, stratified: bool):
-        """The budgeted (or dense) tally of one batch, copied to the host
-        inside the watchdog's deadline: → (tally, n_unresolved), numpy."""
-        def work():
-            t, nu = self.kernel.tally_on_device(keys, self.structure,
-                                                stratified=stratified)
-            return _to_host(t, nu)
+    def _on_shards(self, fn, items) -> list:
+        """``[fn(i, items[i])]`` over the local shards, in shard order: one
+        thread per distinct device (each with its card current, its shards
+        in order), or this thread alone when every shard shares one
+        device."""
+        groups: dict = {}
+        for i, d in enumerate(self.mesh.devices):
+            groups.setdefault(d, []).append(i)
+        if len(groups) == 1:
+            return [fn(i, x) for i, x in enumerate(items)]
+        out = [None] * len(items)
 
-        tally, n_unres = self._dispatch(work)
-        self.transfers += 1
+        def run(dev, idx):
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                for i in idx:
+                    out[i] = fn(i, items[i])
+
+        with ThreadPoolExecutor(len(groups)) as pool:
+            for f in [pool.submit(run, d, idx) for d, idx in groups.items()]:
+                f.result()
+        return out
+
+    # --- the reduction and the shard-vs-sum invariant --------------------
+
+    def _reduce(self, local: np.ndarray, *extra: int, check: bool = True):
+        """(local_size, ...) shard tallies of this process → (the tally
+        summed over every shard of every process, the ``extra`` counts
+        summed the same way, every process's shard tallies stacked on the
+        global shard axis or None).  One ``all_reduce`` carries the tally
+        and the counts; the gather runs only under ``integrity_check``
+        (and ``check``: the host and chunked routes check nothing, as the
+        reference's do not)."""
+        local = np.asarray(local, dtype=np.int64)
+        flat = np.concatenate([local.sum(axis=0).reshape(-1),
+                               np.asarray(extra, dtype=np.int64)])
+        red = self.mesh.all_reduce(flat)
+        n = red.size - len(extra)
+        total = red[:n].reshape(local.shape[1:])
+        shards = (self._gather_locals(local)
+                  if self.integrity_check and check else None)
+        return total, [int(x) for x in red[n:]], shards
+
+    def _gather_locals(self, local: np.ndarray) -> np.ndarray:
+        """Every process's shard tallies on the global shard axis."""
+        return self.mesh.all_gather(local)
+
+    def _verify_shards(self, shards, total) -> None:
+        """The shard-vs-sum invariant (integrity layer): the tallies each
+        shard computed must sum to the reduced tally every process
+        believes — a corrupted collective or a stale buffer cannot
+        pass."""
+        from shrewd_tpu_torch import integrity as integ
+
+        self.shard_checks += 1
+        viol = integ.shard_sum_violations(shards, total)
+        if viol:
+            self.shard_mismatches += 1
+            raise integ.IntegrityError(f"{self.structure}: {viol[0]}")
+
+    def _believe(self, reduced, n_trials: int) -> np.ndarray:
+        """A reduced step (``_reduce``'s result): verify the shards when
+        asked and count the escapes → the global tally (int32).  Runs
+        after the deadline-guarded dispatch, so a timed-out step moves no
+        host counter."""
+        total, (n_unres,), shards = reduced
         if self.integrity_check:
-            self.shard_checks += 1
-        self._count(n_unres, int(keys.shape[0]))
-        return tally
+            self._verify_shards(shards, total)
+        self._count(n_unres, n_trials)
+        return total.astype(np.int32)
+
+    # --- the per-batch steps ----------------------------------------------
+
+    def _device_tally(self, keys: torch.Tensor, stratified: bool):
+        """The budgeted (or dense) tally of one batch, per shard on its
+        device, reduced inside the watchdog's deadline → int32 numpy."""
+        shards = shard_keys(self.mesh, keys)
+
+        def work():
+            host = self._on_shards(
+                lambda i, s: _to_host(*self.kernels[i].tally_on_device(
+                    s, self.structure, stratified=stratified)), shards)
+            return self._reduce(np.stack([t for t, _ in host]),
+                                sum(nu for _, nu in host))
+
+        reduced = self._dispatch(work)
+        self.transfers += len(shards)
+        return self._believe(reduced, int(keys.shape[0]))
 
     def tally_batch_stratified(self, keys: torch.Tensor) -> torch.Tensor:
         """Keys (B, 2) → (N_STRATA, N_OUTCOMES) int32 tally on the CPU for
@@ -185,46 +291,64 @@ class ShardedCampaign:
 
     def _tally_chunked(self, keys: torch.Tensor, stratified: bool
                        ) -> torch.Tensor:
-        """Chunked-strategy tally: outcomes from the chunked wave driver,
-        binned on the host.  Same keys → same outcomes as the dense
-        protocol."""
-        kernel = self.kernel
-        faults = kernel.sample_batch(keys, self.structure)
-        out = self.chunked.outcomes_of_faults(faults)
-        if not stratified:
-            return torch.as_tensor(np.bincount(
-                out, minlength=C.N_OUTCOMES).astype(np.int32))
-        strata = kernel.strata_of(faults, self.structure).cpu().numpy()
-        tally = np.zeros((N_STRATA, C.N_OUTCOMES), np.int32)
-        np.add.at(tally, (strata, out), 1)
-        return torch.as_tensor(tally)
+        """Chunked-strategy tally: per shard, outcomes from the chunked
+        wave loop on the shard's device, binned on the host.  Same keys
+        → same outcomes as the dense protocol."""
+        def shard(i, ks):
+            kern = self.kernels[i]
+            faults = kern.sample_batch(ks, self.structure)
+            out = self.chunkeds[i].outcomes_of_faults(faults)
+            if not stratified:
+                return np.bincount(out, minlength=C.N_OUTCOMES)
+            strata = kern.strata_of(faults, self.structure).cpu().numpy()
+            tally = np.zeros((N_STRATA, C.N_OUTCOMES), np.int64)
+            np.add.at(tally, (strata, out), 1)
+            return tally
+
+        local = self._on_shards(shard, shard_keys(self.mesh, keys))
+        total, _, _ = self._reduce(np.stack(local), check=False)
+        return torch.as_tensor(total.astype(np.int32))
 
     def tally_batch(self, keys: torch.Tensor) -> torch.Tensor:
         """Keys (B, 2) → int32 tally (N_OUTCOMES,) on the CPU."""
-        kernel, structure = self.kernel, self.structure
         if self.chunked is not None:
             return self._tally_chunked(keys, stratified=False)
         if self.mode == "dense" or self.resolution == "device":
             return torch.as_tensor(self._device_tally(keys,
                                                       stratified=False))
+        kernel, structure = self.kernel, self.structure
+        shards = shard_keys(self.mesh, keys)
+
+        def shard(i, s):
+            k = self.kernels[i]
+            r = k.taint_fast(k.sample_batch(s, structure),
+                             may_latch=structure == "latch")
+            return (r.outcome.cpu().numpy(), r.escaped.cpu().numpy(),
+                    r.overflow.cpu().numpy())
 
         def work():
-            faults = kernel.sample_batch(keys, structure)
-            res = kernel.taint_fast(faults, may_latch=structure == "latch")
-            return (faults, res.outcome.cpu().numpy().copy(),
-                    res.escaped.cpu().numpy(), res.overflow.cpu().numpy())
+            res = self._on_shards(shard, shards)
+            return tuple(np.concatenate(part) for part in zip(*res))
 
-        faults, out, esc, ovf = self._dispatch(work)
+        out, esc, ovf = self._dispatch(work)
+        out = out.copy()
+        # the escape counters move by the global counts below, not by what
+        # this process's resolution counted
+        esc0, trials0 = kernel.escapes, kernel.taint_trials
         if self.mode == "taint":        # conservative, no re-runs
             out[esc | ovf] = C.OUTCOME_SDC
-            self._count((esc | ovf).sum(), out.size)
+            kernel.escapes += int((esc | ovf).sum())
         elif (esc | ovf).any():
+            # this process's rows, resolved exactly on the main kernel
+            local_keys = torch.cat([s.to(kernel.device) for s in shards])
+            faults = kernel.sample_batch(local_keys, structure)
             out = kernel.resolve_escapes(faults, out, esc, ovf)
-        else:
-            # zero-escape batches still count toward the escape-rate stats
-            kernel.taint_trials += out.size
-        return torch.as_tensor(
-            np.bincount(out, minlength=C.N_OUTCOMES).astype(np.int32))
+        tally = np.bincount(out, minlength=C.N_OUTCOMES)[None]
+        total, (n_esc,), _ = self._reduce(tally, kernel.escapes - esc0,
+                                          check=False)
+        kernel.escapes = esc0 + n_esc
+        kernel.taint_trials = trials0 + int(keys.shape[0])
+        return torch.as_tensor(total.astype(np.int32))
 
     # --- sync-interval machinery (pipelined engine, parallel/pipeline.py)
 
@@ -232,42 +356,69 @@ class ShardedCampaign:
     def supports_intervals(self) -> bool:
         """Whether the multi-batch steps apply: the host-resolution taint
         path does per-batch host re-runs (nothing to accumulate on the
-        device) and the chunked strategy is host-orchestrated."""
-        return self.chunked is None and (self.mode == "dense"
-                                         or self.resolution == "device")
+        device), the chunked strategy is host-orchestrated, and a
+        multi-process mesh would need a collective per batch."""
+        return (self.chunked is None and self.mesh.world_size == 1
+                and (self.mode == "dense" or self.resolution == "device"))
 
     def _arm(self) -> float:
         return (self.watchdog.arm() if self.watchdog is not None
                 else time.monotonic())
 
     def _event(self):
-        """A CUDA event recorded after the step's last launch (None on the
-        CPU, where the work is done when the step returns)."""
-        if self.kernel.device.type != "cuda":
+        """A CUDA event recorded after the step's last launch on each card
+        (None on the CPU, where the work is done when the step returns)."""
+        cards = [d for d in self.mesh.devices if d.type == "cuda"]
+        if not cards:
             return None
-        ev = torch.cuda.Event()
-        ev.record()
-        return ev
+        events = []
+        for d in dict.fromkeys(cards):
+            with torch.cuda.device(d):
+                ev = torch.cuda.Event()
+                ev.record()
+                events.append(ev)
+        return events[0] if len(events) == 1 else events
+
+    def _sum_shards(self, parts: list) -> torch.Tensor:
+        """Shard tensors summed on the first mesh device (no host copy)."""
+        dev0 = self.mesh.devices[0]
+        acc = parts[0].to(dev0)
+        for p in parts[1:]:
+            acc = acc + p.to(dev0)
+        return acc
 
     def _fetch(self, handle: "InflightInterval"):
         """Wait for the step's device work and copy its outputs to the
         host (runs inside the watchdog's thread when one is set): the
-        accumulator with its unresolved count in one copy, and the
-        until-CI step's half-width buffer in a second."""
-        if handle.event is not None:
-            handle.event.synchronize()
+        summed accumulator with its unresolved count in one copy, the
+        until-CI step's half-width buffer in a second, and, under the
+        integrity check on more than one shard, the shards' own
+        accumulators."""
+        events = handle.event
+        for ev in (events if isinstance(events, list)
+                   else [events] if events is not None else []):
+            ev.synchronize()
         acc, nu, *rest = handle.out
         acc, nu = _to_host(acc, nu)
         self.transfers += 1
+        locals_ = None
+        if self.integrity_check:
+            if len(handle.locals) == 1:
+                locals_ = acc[None].astype(np.int64)
+            else:
+                locals_ = np.stack([t.cpu().numpy() for t in handle.locals]
+                                   ).astype(np.int64)
+                self.transfers += len(handle.locals)
         if rest:
             consumed, hw_buf = rest
             self.transfers += 1
-            return acc, nu, consumed, hw_buf.cpu().numpy()
-        return acc, nu
+            return acc, nu, locals_, consumed, hw_buf.cpu().numpy()
+        return acc, nu, locals_
 
     def dispatch_interval(self, keys_list) -> "InflightInterval":
-        """One sync interval (len(keys_list) batches): each batch's tally
-        is added to accumulators on the kernel's device, and nothing comes
+        """One sync interval (len(keys_list) batches): each shard's batch
+        tallies are added to accumulators on its device, the shards'
+        accumulators summed on the first mesh device, and nothing comes
         back to the host until ``materialize_interval``.  Integer
         per-batch tallies commute, so the result is bit-identical to S
         serial ``tally_batch`` calls summed on the host.  The watchdog
@@ -279,30 +430,39 @@ class ShardedCampaign:
         B = int(keys_list[0].shape[0])
         armed_at = self._arm()
 
-        def dispatch_work():
+        def shard(i, shard_batches):
             acc = nu = None
-            for keys in keys_list:
-                t, n = self.kernel.tally_on_device(
+            for keys in shard_batches:
+                t, n = self.kernels[i].tally_on_device(
                     keys, self.structure, stratified=self.stratify)
                 acc = t if acc is None else acc + t
                 nu = n if nu is None else nu + n
-            return (acc, nu), self._event()
+            return acc, nu
 
-        out, event = self._guarded_dispatch(dispatch_work, S)
-        return InflightInterval(out, armed_at, S, S * B, event)
+        def dispatch_work():
+            res = self._on_shards(shard,
+                                  shard_batch_stack(self.mesh, keys_list))
+            locals_ = [acc for acc, _ in res]
+            out = (self._sum_shards(locals_),
+                   self._sum_shards([nu for _, nu in res]))
+            return out, locals_, self._event()
+
+        out, locals_, event = self._guarded_dispatch(dispatch_work, S)
+        return InflightInterval(out, armed_at, S, S * B, event, locals_)
 
     def materialize_interval(self, handle: "InflightInterval",
                              timeout: float | None = None):
         """Block for / copy one interval to the host — ONE transfer per
-        sync interval.  Enforces the deadline armed at dispatch, counts
-        a shard-vs-sum check on the interval accumulator, and
-        updates the kernel's escape counters exactly as the serial
-        per-batch loop would.  → (tally int64 (N_OUTCOMES,),
+        sync interval (plus the shards' accumulators under the integrity
+        check on a multi-shard mesh).  Enforces the deadline armed at
+        dispatch, verifies the shard-vs-sum invariant on the interval
+        accumulators, and updates the kernel's escape counters exactly as
+        the serial per-batch loop would.  → (tally int64 (N_OUTCOMES,),
         strata int64 | None)."""
-        acc, n_unres = self._guarded_fetch(lambda: self._fetch(handle),
-                                           handle, timeout)
+        acc, n_unres, locals_ = self._guarded_fetch(
+            lambda: self._fetch(handle), handle, timeout)
         if self.integrity_check:
-            self.shard_checks += 1
+            self._verify_shards(locals_, acc)
         strata = None
         if self.stratify:
             strata = np.asarray(acc, dtype=np.int64)
@@ -323,12 +483,12 @@ class ShardedCampaign:
                           target_halfwidth: float, confidence: float,
                           strat_rule: bool) -> "InflightInterval":
         """One until-CI super-interval (budget = len(keys_list) batches):
-        after each batch the float32 Wilson (pooled) or post-stratified
-        half-width of the cumulative tally is evaluated on the device and
-        one ``done`` flag is read; the loop ends at the first batch
-        boundary where the rule fires, or when the budget runs out.  The
-        half-width buffer holds one entry per consumed batch and NaN past
-        the boundary."""
+        after each batch the shards' tallies are summed on the first mesh
+        device, the float32 Wilson (pooled) or post-stratified half-width
+        of the cumulative tally is evaluated there and one ``done`` flag is
+        read; the loop ends at the first batch boundary where the rule
+        fires, or when the budget runs out.  The half-width buffer holds
+        one entry per consumed batch and NaN past the boundary."""
         if not self.supports_intervals:
             raise ValueError(f"{self.structure}: campaign does not support "
                              "device-resident until-CI accumulation")
@@ -338,9 +498,10 @@ class ShardedCampaign:
         S = len(keys_list)
         B = int(keys_list[0].shape[0])
         armed_at = self._arm()
-        dev = self.kernel.device
+        dev = self.mesh.devices[0]
 
         def dispatch_work():
+            per_shard = shard_batch_stack(self.mesh, keys_list)
             tal0 = torch.as_tensor(np.asarray(initial_tallies, np.int64),
                                    dtype=torch.int32, device=dev)
             if self.stratify:
@@ -354,11 +515,18 @@ class ShardedCampaign:
                                   dtype=torch.float32, device=dev)
             hw_buf = torch.full((S,), float("nan"), dtype=torch.float32,
                                 device=dev)
+            locals_ = [None] * len(self.kernels)
             acc = nu = None
             consumed = 0
-            for i, keys in enumerate(keys_list):
-                t, n = self.kernel.tally_on_device(
-                    keys, self.structure, stratified=self.stratify)
+            for i in range(S):
+                res = self._on_shards(
+                    lambda j, batches: self.kernels[j].tally_on_device(
+                        batches[i], self.structure, stratified=self.stratify),
+                    per_shard)
+                for j, (t, _) in enumerate(res):
+                    locals_[j] = t if locals_[j] is None else locals_[j] + t
+                t = self._sum_shards([t for t, _ in res])
+                n = self._sum_shards([n for _, n in res])
                 acc = t if acc is None else acc + t
                 nu = n if nu is None else nu + n
                 consumed = i + 1
@@ -377,10 +545,10 @@ class ShardedCampaign:
                     self.transfers += 1          # the stop flag
                     if bool(hw <= target):
                         break
-            return (acc, nu, consumed, hw_buf), self._event()
+            return (acc, nu, consumed, hw_buf), locals_, self._event()
 
-        out, event = self._guarded_dispatch(dispatch_work, S)
-        return InflightInterval(out, armed_at, S, S * B, event)
+        out, locals_, event = self._guarded_dispatch(dispatch_work, S)
+        return InflightInterval(out, armed_at, S, S * B, event, locals_)
 
     def materialize_until_ci(self, handle: "InflightInterval",
                              timeout: float | None = None):
@@ -388,9 +556,9 @@ class ShardedCampaign:
         however many batches were consumed.  → (tally_delta int64
         (N_OUTCOMES,), strata_delta int64 | None, batches_consumed int,
         hw_trace float32 (consumed,)).  Escape counters update from the
-        consumed batch count, and a shard-vs-sum check is counted on the
-        accumulator exactly like the interval path."""
-        acc, n_unres, consumed, hw_buf = self._guarded_fetch(
+        consumed batch count, and the shard-vs-sum invariant is verified
+        on the accumulators exactly like the interval path."""
+        acc, n_unres, locals_, consumed, hw_buf = self._guarded_fetch(
             lambda: self._fetch(handle), handle, timeout)
         consumed = int(consumed)
         strata = None
@@ -400,7 +568,7 @@ class ShardedCampaign:
         else:
             tally = np.asarray(acc, dtype=np.int64)
         if self.integrity_check:
-            self.shard_checks += 1
+            self._verify_shards(locals_, acc)
         B = handle.n_trials // max(handle.n_batches, 1)
         self._count(int(n_unres), consumed * B)
         return tally, strata, consumed, np.asarray(hw_buf)[:consumed]
@@ -415,14 +583,16 @@ def _to_host(tally: torch.Tensor, n_unres: torch.Tensor):
 
 
 class InflightInterval(NamedTuple):
-    """A dispatched sync interval: its accumulators, still on the device,
-    the watchdog arm time, the interval's shape, and the CUDA event
-    recorded after its last launch (None on the CPU)."""
+    """A dispatched sync interval: its accumulators summed over the
+    shards, still on the first mesh device, the watchdog arm time, the
+    interval's shape, the CUDA event(s) recorded after its last launch
+    (None on the CPU) and each shard's own accumulator on its device."""
     out: tuple               # device tensors (and host scalars)
     armed_at: float          # watchdog deadline epoch (resilience.arm)
     n_batches: int
     n_trials: int
     event: object = None
+    locals: list = ()
 
 
 class CampaignResult(NamedTuple):

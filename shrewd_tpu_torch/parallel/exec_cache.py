@@ -148,8 +148,11 @@ def kernel_fingerprint(kernel) -> tuple:
 
 def step_key(kernel, mesh, structure: str, kind: str, **flags) -> tuple:
     """The full key of one campaign step (the reference keys its
-    executables by it; the port has one device and ``mesh`` is None)."""
-    return (kind, kernel_fingerprint(kernel), mesh, str(structure),
+    executables by it): the kernel's content, the mesh's identity (its
+    devices and its world; ``parallel/mesh.py Mesh.identity``, None
+    without a mesh), the structure and the step's flags."""
+    ident = mesh.identity() if mesh is not None else None
+    return (kind, kernel_fingerprint(kernel), ident, str(structure),
             tuple(sorted(flags.items())))
 
 

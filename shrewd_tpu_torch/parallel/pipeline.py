@@ -149,7 +149,7 @@ def _believe_device_result(engine, tally, strata, n_batches: int, b0: int,
     """The shared believe/quarantine path both engines run on a
     materialized device result covering ``n_batches`` batches: armed
     corruption hook, invariants + canaries on the cumulative delta,
-    then the per-batch deterministic audit — any
+    shard-counter sync, then the per-batch deterministic audit — any
     problem rolls the kernel's escape counters back to (esc0, tt0),
     records the quarantine and recovers through ``recover()`` (the
     serial ladder).  → (believed doc, recovered flag); ONE copy so the
@@ -162,6 +162,7 @@ def _believe_device_result(engine, tally, strata, n_batches: int, b0: int,
     res = engine.monitor.apply_corruption(res)
     problems = engine.checked.check_result(
         res, n_batches * engine.batch_size, batch_id=b0)
+    engine.checked.sync_shard_counters(b0)
     if problems:
         if esc0 is not None:
             kernel.escapes = esc0
@@ -211,7 +212,7 @@ class PipelinedEngine:
 
     def __init__(self, campaign, checked, structure_key, batch_size: int,
                  ceiling_batches: int, sync_every: int, depth: int,
-                 monitor, perf: PerfStats | None = None,
+                 monitor, chaos=None, perf: PerfStats | None = None,
                  sp_name: str = "", structure: str = ""):
         self.campaign = campaign
         self.checked = checked            # integrity.CheckedDispatcher
@@ -221,6 +222,7 @@ class PipelinedEngine:
         self.sync_every = max(int(sync_every), 1)
         self.depth = max(int(depth), 1)
         self.monitor = monitor
+        self.chaos = chaos
         self.perf = perf if perf is not None else PerfStats()
         self.sp_name = sp_name
         self.structure = structure
@@ -311,6 +313,10 @@ class PipelinedEngine:
             # the whole interval, exactly as for a materialization wedge
             self._fill(b0, k)
             head = self._q.popleft()
+            if self.chaos is not None:
+                # armed device-tier chaos faults fire at consume time, the
+                # pipelined analog of the ladder's per-dispatch hook
+                self.chaos.maybe_backend_error(resil.TIER_DEVICE)
             # the per-batch watchdog deadline scales by interval length x
             # in-flight depth: a prefetched interval legitimately queues
             # behind everything dispatched ahead of it
@@ -334,8 +340,8 @@ class PipelinedEngine:
                 "interval_inflight", cat="dispatch", ph="E",
                 sp=self.sp_name, structure=self.structure,
                 b0=int(b0), k=int(k))
-        except Exception as e:  # noqa: BLE001 — wedge, backend crash:
-            # every dispatch/materialization failure
+        except Exception as e:  # noqa: BLE001 — wedge, backend crash,
+            # shard-sum mismatch: every dispatch/materialization failure
             # recovers through the serial per-batch ladder on frozen keys
             debug.dprintf("Pipeline", "%s/%s interval [%d,%d): "
                           "pipelined dispatch failed (%s) — serial "
@@ -428,7 +434,8 @@ class UntilCIEngine:
 
     def __init__(self, campaign, checked, structure_key, batch_size: int,
                  monitor, *, min_trials: int, target_halfwidth: float,
-                 confidence: float, perf: PerfStats | None = None,
+                 confidence: float, chaos=None,
+                 perf: PerfStats | None = None,
                  sp_name: str = "", structure: str = ""):
         self.campaign = campaign
         self.checked = checked            # integrity.CheckedDispatcher
@@ -438,6 +445,7 @@ class UntilCIEngine:
         self.min_trials = int(min_trials)
         self.target_halfwidth = float(target_halfwidth)
         self.confidence = float(confidence)
+        self.chaos = chaos
         self.perf = perf if perf is not None else PerfStats()
         self.sp_name = sp_name
         self.structure = structure
@@ -466,6 +474,10 @@ class UntilCIEngine:
                 keys, tallies, strata, trials0, self.min_trials,
                 self.target_halfwidth, self.confidence, strat_rule)
             self.perf.dispatches += 1
+            if self.chaos is not None:
+                # armed device-tier chaos faults fire at consume time,
+                # exactly like the pipelined interval path
+                self.chaos.maybe_backend_error(resil.TIER_DEVICE)
             wd = self.campaign.watchdog
             tmo = (wd.timeout * S if wd is not None and wd.timeout > 0
                    else None)
@@ -480,8 +492,8 @@ class UntilCIEngine:
                 "super_interval_inflight", cat="dispatch", ph="E",
                 sp=self.sp_name, structure=self.structure,
                 b0=int(b0), k=int(S), consumed=int(consumed))
-        except Exception as e:  # noqa: BLE001 — wedge, backend crash:
-            # recover serially on frozen keys with
+        except Exception as e:  # noqa: BLE001 — wedge, backend crash,
+            # shard-sum mismatch: recover serially on frozen keys with
             # the host stopping rule deciding where to stop
             debug.dprintf("Pipeline", "%s/%s until-CI super-interval "
                           "[%d,%d): device loop failed (%s) — serial "

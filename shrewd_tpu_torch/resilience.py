@@ -170,6 +170,7 @@ class DeviceWatchdog:
         self.timeouts = 0
         self._abandoned: list[threading.Thread] = []
         self._leak_warned = False
+        self.chaos = None            # optional chaos.ChaosEngine (wedge hook)
 
     @property
     def leaked_threads(self) -> int:
@@ -185,6 +186,19 @@ class DeviceWatchdog:
         propagates unchanged (the retry loop decides what is retryable)."""
         tmo = self.timeout if timeout is None else float(timeout)
         self.dispatches += 1
+        if self.chaos is not None and tmo > 0:
+            # chaos wedge hook (only on deadline-bearing dispatches — the
+            # ladder also routes fallback tiers through here with tmo=0,
+            # which must neither consume nor misreport the wedge):
+            # substitute a dispatch that sleeps past the deadline, so the
+            # injected fault exercises the REAL timeout machinery (thread
+            # hop, abandonment, DispatchTimeout) rather than a synthetic
+            # raise.  The injected call runs under the spec's own short
+            # deadline so the campaign's real deadline can stay generous
+            # enough for a first kernel build.
+            wedged = self.chaos.take_wedge(tmo)
+            if wedged is not None:
+                fn, args, tmo = wedged["fn"], (), wedged["deadline"]
         if tmo <= 0:
             return fn(*args)
         # a plain daemon thread, NOT ThreadPoolExecutor: pool workers are
@@ -432,11 +446,16 @@ class ResilientDispatcher:
     def __init__(self, tiers, config: ResilienceConfig | None = None,
                  watchdog: DeviceWatchdog | None = None,
                  backoff: BackoffPolicy | None = None,
-                 device_deadline: bool = True):
+                 device_deadline: bool = True, chaos=None):
         """``device_deadline=False`` when the campaign enforces its own
         per-step deadline (ShardedCampaign built with a watchdog): the
         dispatcher then calls the device tier directly instead of adding a
-        second thread hop + timer around the same work."""
+        second thread hop + timer around the same work.
+
+        ``chaos`` (chaos.ChaosEngine, optional): the deterministic
+        fault-injection harness — armed per-tier ``BackendError`` faults
+        fire here, exercising the retry/degradation machinery exactly as a
+        real backend failure would."""
         if not tiers:
             raise ValueError("need at least one tier")
         self.tiers = list(tiers)
@@ -446,6 +465,7 @@ class ResilientDispatcher:
         self.backoff = (backoff if backoff is not None
                         else BackoffPolicy.from_config(self.cfg))
         self.device_deadline = device_deadline
+        self.chaos = chaos
         self.retries = 0          # re-dispatches beyond each first attempt
         self.degradations = 0     # tier descents taken
 
@@ -461,7 +481,8 @@ class ResilientDispatcher:
             return None
         return ResilientDispatcher(
             self.tiers[pos + 1:], self.cfg, watchdog=self.watchdog,
-            backoff=self.backoff, device_deadline=self.device_deadline)
+            backoff=self.backoff, device_deadline=self.device_deadline,
+            chaos=self.chaos)
 
     def tally_batch(self, keys, stratified: bool = False) -> DispatchResult:
         attempts = 0
@@ -478,6 +499,10 @@ class ResilientDispatcher:
                     self.retries += 1
                     self.backoff.sleep(attempt - 1)
                 try:
+                    if self.chaos is not None:
+                        # chaos ladder hook: an armed per-tier fault raises
+                        # here, consuming one attempt like a real failure
+                        self.chaos.maybe_backend_error(tier)
                     tally, strata = self.watchdog.call(
                         fn, keys, stratified, timeout=tmo)
                     return DispatchResult(
@@ -569,8 +594,8 @@ def oracle_available(campaign) -> bool:
 
 
 def dispatcher_for_campaign(campaign, cfg: ResilienceConfig | None = None,
-                            watchdog: DeviceWatchdog | None = None
-                            ) -> ResilientDispatcher:
+                            watchdog: DeviceWatchdog | None = None,
+                            chaos=None) -> ResilientDispatcher:
     """Build the ladder for one ShardedCampaign: the device tier, then,
     for a CPU campaign, the host oracle where valid.  A campaign on the
     card gets the device tier alone (module docstring)."""
@@ -585,7 +610,8 @@ def dispatcher_for_campaign(campaign, cfg: ResilienceConfig | None = None,
     # deadline around the same call
     return ResilientDispatcher(
         tiers, cfg, watchdog=watchdog,
-        device_deadline=getattr(campaign, "watchdog", None) is None)
+        device_deadline=getattr(campaign, "watchdog", None) is None,
+        chaos=chaos)
 
 
 # --------------------------------------------------------------------------

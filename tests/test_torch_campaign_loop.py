@@ -82,14 +82,18 @@ def test_chunked_route_matches_reference(window, mesh, structure):
 
 
 def test_campaign_refuses_what_a_later_slice_brings(window):
-    """A mesh still waits for the multi-GPU slice; the watchdog, the
-    integrity check and the dispatcher came with the orchestrator's
-    slice and are held here as working."""
+    """The mesh came with the multi-device slice, and the watchdog, the
+    integrity check and the dispatcher with the orchestrator's: all are
+    held here as working (a 2-shard mesh gives the one-device tally; an
+    indivisible batch is still refused)."""
     from shrewd_tpu_torch import resilience as R
+    from shrewd_tpu_torch.parallel.mesh import make_mesh
 
     _, mk = _kernels(window)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ShardedCampaign(mk, object(), "fu")
+    two = ShardedCampaign(mk, make_mesh(["cpu"] * 2), "fu",
+                          integrity_check=True)
+    with pytest.raises(ValueError, match="not divisible by mesh size 2"):
+        two.tally_batch(_keys(1, 63)[1])
     with pytest.raises(ValueError, match="resolution='device'"):
         ShardedCampaign(mk, None, "fu", resolution="host", stratify=True)
     with pytest.raises(ValueError, match="stratify=True"):
@@ -101,6 +105,8 @@ def test_campaign_refuses_what_a_later_slice_brings(window):
                               watchdog=R.DeviceWatchdog(timeout=60.0))
     assert torch.equal(checked.tally_batch(keys), plain)
     assert checked.shard_checks == 1 and checked.watchdog.dispatches == 1
+    assert torch.equal(two.tally_batch(keys), plain)
+    assert two.shard_checks == 1 and len(two.kernels) == 2
     camp = ShardedCampaign(mk, None, "fu")
     kw = dict(seed=0, simpoint_id=0, structure_id=1, batch_size=64,
               max_trials=128)

@@ -658,6 +658,194 @@ def test_k1_launch_failure_raises_out_of_the_orchestrator(cuda, tmp_path,
         assert st.tier_trials.tolist() == [0, 0, 0] and st.next_batch == 0
 
 
+# --- the device mesh and the chaos engine on the card ----------------------
+
+def test_sharded_campaign_on_the_card_mesh_equals_a_cpu_mesh(cuda):
+    """``make_mesh()`` spans every visible card; a CPU mesh of the same
+    size gives the same tallies on the budgeted, stratified, interval and
+    until-CI steps, with the shard-vs-sum check on."""
+    from shrewd_tpu_torch.parallel import ShardedCampaign
+    from shrewd_tpu_torch.parallel.mesh import make_mesh
+    card, cpu = _fupool_pair(cuda, escape_budget=4)
+    mesh = make_mesh()
+    assert [d.type for d in mesh.devices] == ["cuda"] * mesh.size
+    cpu_mesh = make_mesh(["cpu"] * mesh.size)
+    n = 512 * mesh.size
+    keys = [prng.trial_keys(prng.campaign_key(30 + i, "cpu"), n)
+            for i in range(3)]
+    got = ShardedCampaign(card, mesh, "fu", stratify=True,
+                          integrity_check=True)
+    want = ShardedCampaign(cpu, cpu_mesh, "fu", stratify=True,
+                           integrity_check=True)
+    assert torch.equal(got.tally_batch(keys[0].to(cuda)),
+                       want.tally_batch(keys[0]))
+    assert torch.equal(got.tally_batch_stratified(keys[1].to(cuda)),
+                       want.tally_batch_stratified(keys[1]))
+    for a, b in zip(got.tally_interval([k.to(cuda) for k in keys]),
+                    want.tally_interval(keys)):
+        np.testing.assert_array_equal(a, b)
+    args = (np.zeros(4), None, 0, 0, 0.05, 0.95, True)
+    a = got.materialize_until_ci(got.dispatch_until_ci(
+        [k.to(cuda) for k in keys], *args))
+    b = want.materialize_until_ci(want.dispatch_until_ci(keys, *args))
+    for x, y in zip(a[:3], b[:3]):
+        np.testing.assert_array_equal(x, y)
+    assert (card.escapes, card.taint_trials) == (cpu.escapes,
+                                                 cpu.taint_trials)
+    assert got.shard_checks == want.shard_checks == 4
+
+
+def _mixed_mesh_steps(got, want, keys, cuda, stratify: bool):
+    """The budgeted (and stratified), interval and until-CI steps of a
+    card+CPU mesh campaign against a 2-shard CPU mesh campaign; → the
+    card+CPU interval's handle."""
+    assert torch.equal(got.tally_batch(keys[0].to(cuda)),
+                       want.tally_batch(keys[0]))
+    if stratify:
+        assert torch.equal(got.tally_batch_stratified(keys[1].to(cuda)),
+                           want.tally_batch_stratified(keys[1]))
+    handle = got.dispatch_interval([k.to(cuda) for k in keys])
+    for a, b in zip(got.materialize_interval(handle),
+                    want.tally_interval(keys)):
+        np.testing.assert_array_equal(a, b)
+    args = (np.zeros(4), None, 0, 0, 0.05, 0.95, stratify)
+    a = got.materialize_until_ci(got.dispatch_until_ci(
+        [k.to(cuda) for k in keys], *args))
+    b = want.materialize_until_ci(want.dispatch_until_ci(keys, *args))
+    for x, y in zip(a[:3], b[:3]):
+        np.testing.assert_array_equal(x, y)
+    return handle
+
+
+def test_card_and_cpu_mesh_builds_replicas_and_equals_a_cpu_mesh(
+        cuda, monkeypatch):
+    """A mesh of the card and the CPU is a mesh of two distinct devices:
+    the card kernel's replica takes the CPU shard (built once and cached),
+    the two shards run on threads of their own, the interval records the
+    card's event, and the budgeted (escape budget 1, exceeded in each
+    shard), stratified, host-resolution, interval and until-CI steps give
+    a 2-shard CPU mesh's tallies and escape counts, with the shard-vs-sum
+    check on."""
+    import threading
+
+    from shrewd_tpu_torch.parallel import ShardedCampaign
+    from shrewd_tpu_torch.parallel.mesh import make_mesh, shard_keys
+    card, cpu = _fupool_pair(cuda, escape_budget=1)
+    mesh = make_mesh([cuda, "cpu"])
+    got = ShardedCampaign(card, mesh, "fu", stratify=True,
+                          integrity_check=True)
+    want = ShardedCampaign(cpu, make_mesh(["cpu", "cpu"]), "fu",
+                           stratify=True, integrity_check=True)
+    rep = got.kernels[1]
+    assert got.kernels[0] is card and rep is not card
+    assert rep.device.type == "cpu" and card.on_device("cpu") is rep
+    assert ShardedCampaign(card, mesh, "fu").kernels[1] is rep
+    threads = {}
+    for k in got.kernels:
+        def spy(*a, _f=k.tally_on_device, _d=k.device.type, **kw):
+            threads.setdefault(_d, set()).add(threading.get_ident())
+            return _f(*a, **kw)
+        monkeypatch.setattr(k, "tally_on_device", spy)
+    keys = [prng.trial_keys(prng.campaign_key(40 + i, "cpu"), 1024)
+            for i in range(3)]
+    handle = _mixed_mesh_steps(got, want, keys, cuda, stratify=True)
+    assert isinstance(handle.event, torch.cuda.Event)
+    assert [t.device.type for t in handle.locals] == ["cuda", "cpu"]
+    assert threading.get_ident() not in threads["cuda"] | threads["cpu"]
+    for k, s in zip(got.kernels, shard_keys(mesh, keys[0])):
+        assert int(k.tally_on_device(s, "fu")[1]) > 1     # over budget
+    assert card.escapes == cpu.escapes
+    assert card.taint_trials == cpu.taint_trials
+    assert got.shard_checks == want.shard_checks == 4
+    host = ShardedCampaign(card, mesh, "fu", resolution="host")
+    assert torch.equal(
+        host.tally_batch(keys[0].to(cuda)),
+        ShardedCampaign(cpu, make_mesh(["cpu", "cpu"]), "fu",
+                        resolution="host").tally_batch(keys[0]))
+    assert (card.escapes, card.taint_trials) == (cpu.escapes,
+                                                 cpu.taint_trials)
+
+
+def test_tier_kernel_on_a_card_and_cpu_mesh_equals_a_cpu_mesh(cuda):
+    """A tier kernel (the cache's data array) on a card+CPU mesh: its CPU
+    replica takes the second shard, and every step gives a 2-shard CPU
+    mesh's tallies."""
+    from shrewd_tpu_torch.parallel import ShardedCampaign
+    from shrewd_tpu_torch.parallel.mesh import make_mesh
+    card, cpu = _tier_pair(cuda, "cache")
+    got = ShardedCampaign(card, make_mesh([cuda, "cpu"]), "data",
+                          stratify=True, integrity_check=True)
+    want = ShardedCampaign(cpu, make_mesh(["cpu", "cpu"]), "data",
+                           stratify=True, integrity_check=True)
+    assert got.kernels[1] is not card and got.kernels[1].device.type == "cpu"
+    keys = [prng.trial_keys(prng.campaign_key(50 + i, "cpu"), 1024)
+            for i in range(3)]
+    _mixed_mesh_steps(got, want, keys, cuda, stratify=True)
+    assert got.shard_checks == want.shard_checks == 4
+
+
+def _chaos_plan(faults):
+    import json
+    plan = _tiny_plan("serial", True)
+    plan.chaos.spec = json.dumps({"faults": faults})
+    plan.resilience.dispatch_timeout = 60.0
+    return plan
+
+
+def test_chaos_run_on_the_card_equals_the_cpu_run(cuda, tmp_path):
+    """A wedge, a transient device-tier error, a corrupted tally and a torn
+    checkpoint, all survived: the card's results, chaos ledgers and
+    integrity counters are the CPU run's.  The card survives all four on
+    the device tier; the CPU re-dispatches the quarantined batch below the
+    tier that produced it, on the host oracle (D1)."""
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    faults = [{"kind": "wedge", "at_batch": 0},
+              {"kind": "backend_error", "at_batch": 1, "tier": "device"},
+              {"kind": "corrupt_tally", "at_batch": 2},
+              {"kind": "torn_checkpoint", "at_ckpt": 1}]
+    got = []
+    for dev in (cuda, "cpu"):
+        orch = Orchestrator(_chaos_plan(faults),
+                            outdir=str(tmp_path / str(dev)), device=dev)
+        events = list(orch.events())
+        assert events[-1][0].name == "CAMPAIGN_COMPLETE"
+        mon = orch.monitor
+        got.append((sorted((k, r.tallies.tolist(), r.trials)
+                           for k, r in orch.results.items()),
+                    orch.chaos.injected, orch.chaos.survived,
+                    (mon.quarantined, mon.recovered, mon.requeues),
+                    [int(st.tier_trials.sum())
+                     for st in orch.state.values()]))
+        tiers = [st.tier_trials.tolist() for st in orch.state.values()]
+        below = sum(t[1] + t[2] for t in tiers)
+        assert below == (0 if dev is cuda else 32), tiers
+    assert got[0] == got[1]
+    assert got[0][1] == got[0][2] == {"wedge": 1, "backend_error": 1,
+                                      "corrupt_tally": 1,
+                                      "torn_checkpoint": 1}
+
+
+def test_permanent_device_fault_raises_out_of_the_orchestrator(cuda,
+                                                               tmp_path):
+    """On the card the ladder is the device tier alone (ROADMAP Queue 3
+    D1): a permanent device-tier fault exhausts its retries and raises
+    out of ``events()``, where a CPU campaign descends to the oracle."""
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.resilience import LadderExhausted
+    plan = _chaos_plan([{"kind": "backend_error", "at_batch": 1,
+                         "tier": "device", "permanent": True}])
+    orch = Orchestrator(plan, outdir=str(tmp_path / "card"), device=cuda)
+    with pytest.raises(LadderExhausted, match="chaos: injected device"):
+        list(orch.events())
+    assert orch.chaos.injected == {"backend_error": 1}
+    assert not orch.chaos.survived
+    cpu = Orchestrator(_chaos_plan([{"kind": "backend_error",
+                                     "at_batch": 1, "tier": "device",
+                                     "permanent": True}]), device="cpu")
+    assert list(cpu.events())[-1][0].name == "CAMPAIGN_COMPLETE"
+    assert cpu.chaos.survived == {"backend_error": 1}
+
+
 # --- the tier structures (cache, MESI, NoC) -------------------------------
 
 def _tier_pair(cuda, tier: str):

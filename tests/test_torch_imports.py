@@ -2,9 +2,11 @@
 points that run on the card unless the caller asks for the CPU.  The no-jax
 subprocess imports every module of the port and drives the trial path, the
 chunked path on both engines, every O3 structure with the FU-pool model,
-the campaign loop, the cache, MESI and NoC tier kernels, and the campaign
-CLI (``run`` in all three modes and ``resume``, and a tier plan) on the
-CPU."""
+the campaign loop, the cache, MESI and NoC tier kernels, the campaign
+CLI (``run`` in all three modes and ``resume``, and a tier plan), a
+campaign on a 3-shard mesh under a chaos plan as an elastic worker, and
+the multi-process launcher (its elastic mode, whose worker process runs
+without the block) on the CPU."""
 
 import os
 import shutil
@@ -98,6 +100,28 @@ with tempfile.TemporaryDirectory() as d:
     tiers.dump_json(os.path.join(d, "tiers.json"))
     assert main(["run", os.path.join(d, "tiers.json"), "--outdir", d,
                  "--platform", "cpu", "--until-ci"]) == 0
+from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+from shrewd_tpu_torch.chaos import ChaosEngine
+from shrewd_tpu_torch.parallel.elastic import ElasticContext
+from shrewd_tpu_torch.parallel.launch import main as launch
+from shrewd_tpu_torch.parallel.mesh import make_mesh
+import warnings
+plan.chaos.spec = json.dumps({"faults": [{"kind": "corrupt_tally",
+                                          "at_batch": 0}]})
+with warnings.catch_warnings(), tempfile.TemporaryDirectory() as d:
+    warnings.simplefilter("ignore")     # 32 rounds to 33 on 3 shards
+    o = Orchestrator(plan, mesh=make_mesh(["cpu"] * 3))
+    o.attach_elastic(ElasticContext(d, "w0"))
+    assert list(o.events())[-1][0].name == "CAMPAIGN_COMPLETE"
+    o._elastic.stop()
+    assert o.chaos.survived == {"corrupt_tally": 1}
+    assert o._elastic.claimed >= 2
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert launch(["--mode", "elastic", "--num-processes", "1",
+                   "--platform", "cpu", "--num-batches", "2",
+                   "--no-reference"]) == 0
+assert json.loads(out.getvalue())["ok"]
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded

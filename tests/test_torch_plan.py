@@ -6,7 +6,10 @@ default plan and one with every child and param off its default.  A
 a ``WorkloadSpec`` window is the reference's, array for array.  Every
 option whose engine comes with a later slice raises
 ``NotImplementedError`` before a trial runs, and a default plan reaches
-none of them; a plan naming a tier structure runs."""
+none of them; a plan naming a tier structure runs, and so does a plan
+with a chaos plan inline or in a file (the chaos engine came with the
+multi-device slice), as do a mesh, ``attach_chaos`` and
+``attach_elastic``."""
 
 import json
 
@@ -118,12 +121,6 @@ def _tiny(**kw):
 
 
 def _later_options():
-    def chaos(p):
-        p.chaos.spec = '{"faults": []}'
-
-    def chaos_path(p):
-        p.chaos.plan_path = "chaos.json"
-
     def certify(p):
         p.analysis.certify = "strict"
 
@@ -133,9 +130,37 @@ def _later_options():
     def checkpoint_spec(p):
         p.simpoints.append(PP.CheckpointSpec(name="c", cpt_dir="cpt"))
 
-    return {"chaos_spec": chaos, "chaos_path": chaos_path,
-            "certify": certify, "compilation_cache_dir": cache_dir,
+    return {"certify": certify, "compilation_cache_dir": cache_dir,
             "checkpoint_spec": checkpoint_spec}
+
+
+_CHAOS = {"faults": [{"kind": "corrupt_tally", "at_batch": 1}]}
+
+
+@pytest.mark.parametrize("option", ["chaos_spec", "chaos_path"])
+def test_chaos_plan_options_run(option, tmp_path):
+    """A chaos plan inline (``chaos.spec``) or in a file
+    (``chaos.plan_path``) builds the engine when the orchestrator is made,
+    and the run survives its fault with the undisturbed tally."""
+    plan = _tiny()
+    if option == "chaos_spec":
+        plan.chaos.spec = json.dumps(_CHAOS)
+    else:
+        path = tmp_path / "chaos.json"
+        path.write_text(json.dumps(_CHAOS))
+        plan.chaos.plan_path = str(path)
+    orch = Orchestrator(PP.CampaignPlan.from_dict(plan.to_dict()),
+                        device="cpu")
+    assert orch.chaos is not None and orch.watchdog.chaos is orch.chaos
+    events = list(orch.events())
+    assert events[-1][0].name == "CAMPAIGN_COMPLETE"
+    clean = Orchestrator(_tiny(), device="cpu")
+    list(clean.events())
+    key = ("w0", "regfile")
+    np.testing.assert_array_equal(orch.results[key].tallies,
+                                  clean.results[key].tallies)
+    assert orch.chaos.injected == orch.chaos.survived == {
+        "corrupt_tally": 1}
 
 
 def _no_o3_step(monkeypatch) -> list:
@@ -177,17 +202,44 @@ def test_tier_structures_run_without_the_o3_step(structure, monkeypatch):
 
 @pytest.mark.parametrize("what", ["mesh", "attach_chaos", "attach_elastic",
                                   "checkpoint_spec_build"])
-def test_later_slice_entry_points_raise(what):
-    if what == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh"):
-            Orchestrator(_tiny(), mesh=object(), device="cpu")
-    elif what == "checkpoint_spec_build":
+def test_later_slice_entry_points_raise(what, tmp_path):
+    """``CheckpointSpec.build_trace`` still raises; a mesh,
+    ``attach_chaos`` and ``attach_elastic`` came with the multi-device
+    slice and are held here as working: each run gives the plain run's
+    tally."""
+    if what == "checkpoint_spec_build":
         with pytest.raises(NotImplementedError, match="ingest"):
             PP.CheckpointSpec(name="c", cpt_dir="cpt").build_trace()
+        return
+    from shrewd_tpu_torch.chaos import ChaosEngine
+    from shrewd_tpu_torch.parallel.elastic import ElasticContext
+    from shrewd_tpu_torch.parallel.mesh import make_mesh
+
+    plain = Orchestrator(_tiny(), device="cpu")
+    list(plain.events())
+    if what == "mesh":
+        orch = Orchestrator(_tiny(), mesh=make_mesh(["cpu"] * 2))
+        assert orch.mesh.size == 2 and orch.batch_size == 32
+        with pytest.raises(ValueError, match="not on the mesh"):
+            Orchestrator(_tiny(), mesh=orch.mesh, device="cuda:3")
     else:
         orch = Orchestrator(_tiny(), device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            getattr(orch, what)(None)
+        if what == "attach_chaos":
+            orch.attach_chaos(ChaosEngine({"faults": [
+                {"kind": "backend_error", "at_batch": 0}]}))
+        else:
+            ctx = ElasticContext(str(tmp_path), "w0")
+            orch.attach_elastic(ctx)
+    events = list(orch.events())
+    if what == "attach_elastic":
+        ctx.stop()
+        assert ctx.claimed == 2
+    if what == "attach_chaos":
+        assert orch.chaos.survived == {"backend_error": 1}
+    assert events[-1][0].name == "CAMPAIGN_COMPLETE"
+    key = ("w0", "regfile")
+    np.testing.assert_array_equal(orch.results[key].tallies,
+                                  plain.results[key].tallies)
 
 
 def test_default_plan_reaches_no_later_slice_option():
