@@ -154,6 +154,33 @@ JAX.  Phases, each fatal:
     batches it computed plus its re-dispatches, two per canary run and one
     per audited batch, with no call of K1's plain version on card tensors.
     One card serves both workers: the times are not a scaling number.
+16. real workload binaries, built from ``workloads/`` with this machine's
+    gcc (ptrace, objdump and nm are checked first; a failure is fatal):
+    (a) ``IngestPipeline`` on ``intmm.c`` in a fresh ``ArtifactStore`` at
+    ``DEFAULT_AXES`` with ``preprocess=True, chunk=1024``: every stage
+    journaled, 3 windows of 2 chunks or more, a second run warm-starts
+    with 0 captures and 0 lifts, and ``lzss.c`` at ``DEFAULT_AXES`` is
+    quarantined at ``capture`` with a durable ``ingest_quarantine``
+    record; each stage's seconds printed; (b) ``resolved_plan`` → the
+    campaign CLI in-process (regfile and fu, batch 4096, stratified,
+    target 0.01): rc 0, every batch on the device tier, K1's launches
+    exactly the batches plus two per canary run and one per audited batch,
+    no call of its plain version on card tensors, K1 held against its
+    plain version on each window's first batch, 2048 outcomes per window
+    equal to the C++ oracle's; (c) ``ChunkedCampaign(kernel, chunk=1024,
+    store=…)`` on each window: opened from the store with no
+    preprocessing, one K2 launch per fast wave, each held against its
+    plain version, 512 outcomes equal to the exact engine's; (d)
+    ``python -m shrewd_tpu_torch hostdiff`` on ``sort.c`` (``--mode
+    output --trials 32`` and ``--mode device64 --trials 16``, each with
+    ``--out``): rc 0 and the one-line JSON, and in the report no
+    ``diverged_resolution_failed`` and every escalated trial classified
+    by the emulator; host, device and escalation seconds apart, from the
+    library's ``run_host`` and ``run_device`` on 8 trials;
+    ``run_device`` over 4096 coordinates on the card equal to the CPU's
+    lane for lane, with the peak allocated memory; the memmap dense
+    replay's µs per step beside the same window's without the memmap.
+    No gate holds a lifted window against a tally pinned elsewhere.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -282,6 +309,9 @@ PIN_CI = {
                       0.5619039430030799)),
 }
 N_CHUNK_FU = 512                # phase 12: the chunked route, fu keys
+INGEST_CHUNK = 1024             # phase 16: the preprocess stage's chunk
+N_HOSTDIFF = 4096               # phase 16 (d): run_device card vs CPU
+N_SPLIT = 8                     # phase 16 (d): host / device / escalation
 # phase 13, the campaign CLI: the JAX reference's results at target 0.005
 # for the same campaign (batch 4096, stratified, fupool; the orchestrator
 # derives its keys as run_until_ci does, so these are run_until_ci's;
@@ -2076,6 +2106,409 @@ def _tier_phase(torch, marks, card, pool) -> dict:
     return timings
 
 
+def ingest_phase(torch, marks, card) -> dict:
+    """Phase 16, real workload binaries on the card → the timings, K1's
+    and K2's launches on the ingested windows' paths and their largest
+    differences from their plain versions there.  (a) ingest
+    ``workloads/intmm.c``; (b) the campaign CLI on its windows; (c) the
+    store-opened chunked route; (d) ``hostdiff`` on ``workloads/sort.c``.
+    Every gate holds the card against the port on the CPU, the C++ oracle
+    or the kernels' plain versions, never against a tally pinned
+    elsewhere: the workloads are built with this machine's gcc."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.ingest.lift import read_nativetrace, static_decode
+    from shrewd_tpu_torch.ingest.pipeline import (DEFAULT_AXES, STAGES,
+                                                  IngestPipeline,
+                                                  IngestQuarantine)
+    from shrewd_tpu_torch.ingest.store import ArtifactStore
+    from shrewd_tpu_torch.main import main as cli
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.obs import clock
+    from shrewd_tpu_torch.obs import trace as obs_trace
+    from shrewd_tpu_torch.ops import chunked, taint_cuda, trial
+    from shrewd_tpu_torch.ops import window as W
+    from shrewd_tpu_torch.ops.chunked import ChunkedCampaign
+    from shrewd_tpu_torch.ops.taint import taint_chunk
+    from shrewd_tpu_torch.ops.taint_cuda import (taint_chunk_cuda,
+                                                 taint_fast_cuda)
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.service.journal import FleetJournal
+    from shrewd_tpu_torch.trace import format as tf
+    from shrewd_tpu_torch.utils import prng
+
+    t_phase = time.monotonic()
+    timings: dict = {"card": card}
+    launches: dict = {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+
+    # ptrace first: the capture (nativetrace), the host SFI (hostsfi), and
+    # objdump / nm behind static_decode and elf_markers
+    t0 = time.monotonic()
+    paths = hd.build_tools("workloads/intmm.c")
+    sort_paths = hd.build_tools("workloads/sort.c")
+    lzss = hd.build_tools("workloads/lzss.c")
+    probe = os.path.join(d, "probe.bin")
+    proc = subprocess.run(
+        [str(paths.tracer), probe, f"{paths.begin:x}", f"{paths.end:x}",
+         "64", str(paths.workload)], capture_output=True, text=True)
+    if proc.returncode not in (0, 1) or not os.path.exists(probe):
+        fail(f"ptrace capture does not run here: rc {proc.returncode} "
+             f"{proc.stderr.strip()[-200:]}")
+    if len(read_nativetrace(probe).steps) < 2 or not static_decode(
+            str(paths.workload)):
+        fail("ptrace capture or objdump decode came back empty")
+    host = hd.run_host(sort_paths, np.array([[0, 0, 0]], np.int64))
+    log(f"ptrace, objdump and nm work: workloads built, a 64-step capture, "
+        f"one hostsfi trial (class {int(host[0])}) "
+        f"({time.monotonic() - t0:.1f} s)")
+
+    # (a) ingest intmm.c at DEFAULT_AXES with the preprocess stage
+    store = ArtifactStore(os.path.join(d, "store"))
+    digest = store.put_binary(open(paths.workload, "rb").read())
+    axes = {**DEFAULT_AXES, "preprocess": True, "chunk": INGEST_CHUNK}
+
+    def kinds(outdir):
+        return [(r["kind"], r.get("stage"), r.get("cached")) for r in
+                FleetJournal.replay_path(os.path.join(
+                    outdir, "ingest.jsonl"))[0]]
+
+    # each stage's seconds: from the tracer's ingest_stage events, each
+    # timed from the event before it (the first from the run's start)
+    cold = IngestPipeline(os.path.join(d, "t0"), store, digest, axes=axes)
+    tracer = obs_trace.enable()
+    t0 = clock.monotonic()
+    plan = cold.run()
+    t_cold = clock.monotonic() - t0
+    obs_trace.disable()
+    stage_s: dict = {}
+    t = t0
+    for ev in tracer.snapshot():
+        if ev["name"] == "ingest_stage":
+            stage_s[ev["args"]["stage"]] = ev["ts"] - t
+            t = ev["ts"]
+    want = [("ingest_stage", s, False) for s in STAGES + ("preprocess",)]
+    if kinds(cold.outdir) != want + [("ingest_done", None, None)]:
+        fail(f"(a) journal {kinds(cold.outdir)}")
+    if len(plan["simpoints"]) != 3:
+        fail(f"(a) {len(plan['simpoints'])} windows, not 3")
+    pre = store.get_doc(digest, cold.key, "preprocess")
+    if any(w["C"] < 2 for w in pre["windows"]):
+        fail(f"(a) a window spans one chunk: {pre['windows']}")
+    t0 = time.monotonic()
+    warm = IngestPipeline(os.path.join(d, "t1"), store, digest, axes=axes)
+    if warm.run() != plan or (warm.captures, warm.lifts) != (0, 0):
+        fail(f"(a) warm start: {warm.captures} captures, {warm.lifts} "
+             "lifts")
+    t_warm = time.monotonic() - t0
+    lz_store = ArtifactStore(os.path.join(d, "lz_store"))
+    lz_digest = lz_store.put_binary(open(lzss.workload, "rb").read())
+    lz_out = os.path.join(d, "lz")
+    t0 = time.monotonic()
+    try:
+        IngestPipeline(lz_out, lz_store, lz_digest, axes=DEFAULT_AXES).run()
+        fail("(a) lzss.c at DEFAULT_AXES was not quarantined")
+    except IngestQuarantine as q:
+        if q.stage != "capture":
+            fail(f"(a) lzss.c quarantined at {q.stage}, not capture")
+        lz_reason = str(q)
+    if kinds(lz_out)[-1][:2] != ("ingest_quarantine", "capture"):
+        fail(f"(a) lzss.c journal {kinds(lz_out)}")
+    t_lz = time.monotonic() - t0
+    traces = [tf.load(store.payload_path(digest, cold.key, e["file"]))[0]
+              for e in plan["simpoints"]]
+    timings["ingest"] = {
+        "cold_s": t_cold, "stage_s": stage_s, "warm_s": t_warm,
+        "lzss_quarantine_s": t_lz,
+        "windows": [{"name": e["name"], "uops": int(t.n), "C": w["C"]}
+                    for e, t, w in zip(plan["simpoints"], traces,
+                                       pre["windows"])],
+        "nphys": int(traces[0].nphys), "mem_words": int(traces[0].mem_words)}
+    log(f"(a) intmm.c ingested in {t_cold:.1f} s, stages "
+        + ", ".join(f"{s} {v:.2f} s" for s, v in stage_s.items())
+        + f": {len(traces)} windows of "
+        f"{[int(t.n) for t in traces]} µops, nphys {traces[0].nphys}, "
+        f"{traces[0].mem_words} words, {[w['C'] for w in pre['windows']]} "
+        f"chunks of {INGEST_CHUNK}; warm start {t_warm:.3f} s with 0 "
+        f"captures and 0 lifts; lzss.c quarantined at capture "
+        f"({lz_reason[-80:]!r}) in {t_lz:.1f} s, journaled")
+    marks("16 (a) ingest")
+
+    # (b) the campaign CLI on the ingested windows
+    sizes: list = []
+    kept: dict = {}
+    plain_cuda = [0]
+    launch, plain = trial.taint_fast_cuda, taint_cuda.taint_fast_plain
+
+    def sized(*a, **kw):
+        got = launch(*a, **kw)
+        n = int(a[3].kind.shape[0])
+        sizes.append(n)
+        if n == CI_BATCH and id(a[0]) not in kept:
+            kept[id(a[0])] = (a, {x: v for x, v in kw.items()
+                                  if x != "stream"}, got)
+        return got
+
+    def counted_plain(*a, **kw):
+        if a[3].kind.device.type == "cuda":
+            plain_cuda[0] += 1
+        return plain(*a, **kw)
+
+    trial.taint_fast_cuda = sized
+    taint_cuda.taint_fast_plain = counted_plain
+    plan_path = os.path.join(d, "resolved.json")
+    CampaignPlan.from_dict(cold.resolved_plan({
+        "structures": ["regfile", "fu"], "batch_size": CI_BATCH,
+        "target_halfwidth": CI_TARGET, "stratify": True})).dump_json(
+            plan_path)
+    out = os.path.join(d, "campaign")
+    taint_fast_cuda.launches = 0
+    t0 = time.monotonic()
+    rc = cli(["run", plan_path, "--outdir", out])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    trial.taint_fast_cuda = launch
+    taint_cuda.taint_fast_plain = plain
+    if rc != 0:
+        fail(f"(b) CLI rc {rc}")
+    doc = _read_json(os.path.join(out, "campaign_ckpt", "campaign.json"))
+    stats = _read_json(os.path.join(out, "stats.json"))
+    batches = trials = 0
+    for name, per in doc["state"].items():
+        for s, st in per.items():
+            batches += st["next_batch"]
+            trials += sum(st["tallies"])
+            if st["tier_trials"][1:] != [0, 0]:
+                fail(f"(b) {name} {s}: tier trials {st['tier_trials']}")
+    tiers = stats["resilience"]["tier_trials"]
+    if tiers["cpu"] or tiers["oracle"]:
+        fail(f"(b) resilience.tier_trials {tiers}")
+    mon = doc["integrity"]
+    want_k1 = batches + 2 * mon["canary_runs"] + mon["audit_batches"]
+    n_batch = sizes.count(CI_BATCH)
+    if (taint_fast_cuda.launches != len(sizes) or len(sizes) != want_k1
+            or n_batch != batches):
+        fail(f"(b) K1 launches {taint_fast_cuda.launches} ({n_batch} of "
+             f"{CI_BATCH} lanes) != {batches} batches + 2 x "
+             f"{mon['canary_runs']} canary runs + {mon['audit_batches']} "
+             "audit samples")
+    if plain_cuda[0]:
+        fail("(b) K1's plain version ran on card tensors")
+    if len(kept) != len(traces):
+        fail(f"(b) first batch launches kept for {len(kept)} of "
+             f"{len(traces)} windows")
+    max_err = 0
+    for i, (args, kw, got) in enumerate(kept.values()):
+        max_err = max(max_err, compare(torch, got, plain(*args, **kw),
+                                       f"(b) window {i} first batch"))
+    launches["ingested windows campaign CLI (b)"] = len(sizes)
+    n_oracle = 0
+    for t in traces:
+        kernel = TrialKernel(t, O3Config(), device="cuda")
+        faults = kernel.sample_batch(prng.trial_keys(
+            prng.campaign_key(0), N_ORACLE), "regfile")
+        bad = int((kernel.run_batch_hybrid(faults, may_latch=False)
+                   != kernel.oracle_outcomes(faults)).sum())
+        if bad:
+            fail(f"(b) {bad}/{N_ORACLE} outcomes of a window differ from "
+                 "the C++ oracle")
+        n_oracle += N_ORACLE
+    timings["ingest_campaign"] = {
+        "rc": 0, "batches": batches, "trials": trials, "wall_s": wall,
+        "trials_per_s": trials / wall, "k1_launches": len(sizes),
+        "canary_runs": mon["canary_runs"],
+        "audit_batches": mon["audit_batches"]}
+    log(f"(b) CLI on the ingested windows (regfile, fu; batch {CI_BATCH}, "
+        f"stratified, target {CI_TARGET}): rc 0, {batches} batches, "
+        f"{trials} trials, every batch on the device tier, K1 "
+        f"{len(sizes)} launches = {batches} batches + 2 x "
+        f"{mon['canary_runs']} canary runs + {mon['audit_batches']} audit "
+        f"samples, 0 plain calls, K1 == plain on each window's first "
+        f"batch; {n_oracle} outcomes == C++ oracle; {wall:.1f} s = "
+        f"{trials / wall:,.0f} trials/s ({card})")
+    marks("16 (b) campaign on the ingested windows")
+
+    # (c) the store-opened chunked route
+    real_k2 = chunked.taint_chunk_cuda
+    k2_err = [0]
+
+    def held(*a, **kw):
+        got = real_k2(*a, **kw)
+        ref = taint_chunk(*a, **{x: v for x, v in kw.items()
+                                 if x != "stream"})
+        for x, y in zip(got, ref):
+            diff = (x.to(torch.int64) - y.to(torch.int64)).abs()
+            k2_err[0] = max(k2_err[0], int(diff.max()) if diff.numel()
+                            else 0)
+            if not torch.equal(x.to(torch.int64), y.to(torch.int64)):
+                fail("(c) K2 and its plain version differ on a wave")
+        return got
+
+    chunked.taint_chunk_cuda = held
+    W.clear_registry()
+    builds, hits = W.STATS["builds"], W.STATS["store_hits"]
+    n_k2 = fast_waves = 0
+    t0 = time.monotonic()
+    for t in traces:
+        kernel = TrialKernel(t, O3Config(), device="cuda")
+        camp = ChunkedCampaign(kernel, chunk=INGEST_CHUNK, store=store)
+        exact_waves = [0]
+        trial_chunk = camp._trial_chunk
+
+        def counted(*a, tc=trial_chunk, ew=exact_waves):
+            ew[0] += 1
+            return tc(*a)
+        camp._trial_chunk = counted
+        keys = prng.trial_keys(prng.campaign_key(5), N_CHUNK_KEYS)
+        taint_chunk_cuda.launches = 0
+        got = camp.outcomes_from_keys(keys, "regfile")
+        n = taint_chunk_cuda.launches
+        waves = camp.last_stats["waves"] - exact_waves[0]
+        if n != waves or n < 1:
+            fail(f"(c) {n} K2 launches for {waves} fast waves")
+        n_k2 += n
+        fast_waves += waves
+        exact = ChunkedCampaign(kernel, chunk=INGEST_CHUNK, engine="exact")
+        if not np.array_equal(got, exact.outcomes_from_keys(keys,
+                                                            "regfile")):
+            fail("(c) store-opened taint engine != the exact engine")
+    chunked.taint_chunk_cuda = real_k2
+    if W.STATS["store_hits"] - hits < 1 or W.STATS["builds"] != builds:
+        fail(f"(c) store hits {W.STATS['store_hits'] - hits}, builds "
+             f"{W.STATS['builds'] - builds}: a window was preprocessed "
+             "again")
+    launches["store-opened chunked (c)"] = n_k2
+    timings["ingest_chunked"] = {
+        "s": time.monotonic() - t0, "k2_launches": n_k2,
+        "fast_waves": fast_waves,
+        "store_hits": W.STATS["store_hits"] - hits}
+    log(f"(c) ChunkedCampaign(chunk={INGEST_CHUNK}, store=…) on each "
+        f"window: opened from the store ({W.STATS['store_hits'] - hits} "
+        f"hits, 0 builds), {n_k2} K2 launches = {fast_waves} fast waves, "
+        f"each == plain; {N_CHUNK_KEYS} outcomes per window == the exact "
+        f"engine ({time.monotonic() - t0:.1f} s)")
+    marks("16 (c) store-opened chunked route")
+
+    # (d) hostdiff on sort.c: the CLI in output and device64 modes, each
+    # report read back and its emulator escalations held to account.  One
+    # ptrace capture at a time: on an H100 host, captures run alongside
+    # one another came back truncated or with the workload dead in
+    # glibc's start-up
+    lines, escal, cli_s = {}, {}, {}
+    for mode, n_trials in (("output", 32), ("device64", 16)):
+        rep_path = os.path.join(d, f"hostdiff_{mode}.json")
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["hostdiff", "--workload", "workloads/sort.c",
+                      "--mode", mode, "--trials", str(n_trials),
+                      "--seed", "0", "--out", rep_path])
+        cli_s[mode] = time.monotonic() - t0
+        if rc != 0:
+            fail(f"(d) hostdiff --mode {mode} rc {rc}")
+        lines[mode] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        rep = _read_json(rep_path)
+        escal[mode] = escalations(rep, f"(d) hostdiff --mode {mode}")
+        log(f"(d) hostdiff --mode {mode} --trials {n_trials}: rc 0 in "
+            f"{cli_s[mode]:.1f} s, {rep['lift_stats']['uops']} µops lifted, "
+            f"escalations {json.dumps(escal[mode])}, "
+            f"{json.dumps(lines[mode])}")
+    # host, device and escalation seconds apart, through the library on
+    # one lift: run_host, run_device without escalation, run_device with
+    # it (the escalation is the difference); the device's seconds hardly
+    # depend on the lanes (a step loop), so a few trials do
+    trace, meta = hd.capture_and_lift_to_output(sort_paths)
+    few = hd.sample_coords(N_SPLIT, meta["window_macro_ops"], seed=0)
+    t0 = time.monotonic()
+    host = hd.run_host(sort_paths, few)
+    host_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    hd.run_device(trace, meta, few, resolve_diverged=False)
+    torch.cuda.synchronize()
+    device_s = time.monotonic() - t0
+    rep = {}
+    t0 = time.monotonic()
+    dev = hd.run_device(trace, meta, few, paths=sort_paths, report=rep)
+    escalation_s = time.monotonic() - t0 - device_s
+    split = {"uops": int(trace.n), "host_s": host_s, "device_s": device_s,
+             "escalation_s": escalation_s,
+             **escalations(rep, "(d) run_device with escalation"),
+             "agreement_exact": hd.compare(host, dev)["agreement_exact"]}
+    log(f"(d) {N_SPLIT} trials on one lift of {trace.n} µops: host "
+        f"{host_s:.1f} s, device {device_s:.1f} s, escalation "
+        f"{escalation_s:.1f} s for {split['escalated_total']} escalated "
+        f"trials ({split['diverged_resolved']}); agreement_exact (a "
+        f"reading) {split['agreement_exact']} ({card})")
+    # run_device over 4096 coordinates: the card against the CPU, lane for
+    # lane, on the same lift
+    coords = hd.sample_coords(N_HOSTDIFF, meta["window_macro_ops"], seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    on_card = hd.run_device(trace, meta, coords, resolve_diverged=False)
+    torch.cuda.synchronize()
+    t_card = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.monotonic()
+    on_cpu = hd.run_device(trace, meta, coords, resolve_diverged=False,
+                           device="cpu")
+    t_cpu = time.monotonic() - t0
+    if not np.array_equal(on_card, on_cpu):
+        fail(f"(d) run_device: {int((on_card != on_cpu).sum())} of "
+             f"{N_HOSTDIFF} lanes differ between the card and the CPU")
+    # the memmap dense replay per step, beside the same window without it
+    faults = hd.coord_faults(meta, coords, "cuda")
+    k_mm = TrialKernel(trace, O3Config(enable_shrewd=False), device="cuda",
+                       memmap=hd.memmap_from_meta(meta))
+    k_plain = TrialKernel(trace, O3Config(enable_shrewd=False),
+                          device="cuda")
+    mm_ms = time_ms(torch, lambda: k_mm._replay(faults), 1)
+    plain_replay_ms = time_ms(torch, lambda: k_plain._replay(faults), 1)
+    del k_mm, k_plain, faults
+    log(f"(d) run_device over {N_HOSTDIFF} coordinates: card {t_card:.1f} "
+        f"s == CPU {t_cpu:.1f} s lane for lane, peak allocated "
+        f"{peak / 2**30:.2f} GiB; dense replay of {N_HOSTDIFF} lanes over "
+        f"{trace.n} µops, {trace.mem_words} words: with the memmap "
+        f"{mm_ms * 1e3 / trace.n:.1f} µs/step, without "
+        f"{plain_replay_ms * 1e3 / trace.n:.1f} µs/step ({card})")
+    shutil.rmtree(d, ignore_errors=True)
+    timings["hostdiff"] = {
+        "cli_s": cli_s, "lines": lines, "escalations": escal,
+        "split": {"trials": N_SPLIT, **split},
+        "run_device_lanes": N_HOSTDIFF, "run_device_card_s": t_card,
+        "run_device_cpu_s": t_cpu, "peak_allocated_bytes": peak,
+        "uops": int(trace.n), "mem_words": int(trace.mem_words),
+        "memmap_replay_ms": mm_ms, "plain_replay_ms": plain_replay_ms,
+        "memmap_us_per_step": mm_ms * 1e3 / trace.n,
+        "plain_us_per_step": plain_replay_ms * 1e3 / trace.n}
+    timings["ingest_phase_s"] = time.monotonic() - t_phase
+    marks("16 (d) hostdiff")
+    return {"timings": timings, "launches": launches, "k1_max_err": max_err,
+            "k2_max_err": k2_err[0]}
+
+
+def escalations(rep: dict, what: str) -> dict:
+    """A hostdiff report's emulator escalations; fails when the emulator
+    could not run (``run_device`` then labels every escalated trial SDC)
+    or when it classified fewer trials than were escalated."""
+    if "diverged_resolution_failed" in rep:
+        fail(f"{what}: the emulator escalation failed: "
+             f"{rep['diverged_resolution_failed']}")
+    resolved = rep.get("diverged_resolved", {})
+    if sum(resolved.values()) != rep["escalated_total"]:
+        fail(f"{what}: {sum(resolved.values())} of "
+             f"{rep['escalated_total']} escalated trials classified")
+    return {"device_diverged": rep["device_diverged"],
+            "resync_severed": rep["resync_severed"],
+            "escalated_total": rep["escalated_total"],
+            "diverged_resolved": resolved}
+
+
 def main() -> int:
     import torch
 
@@ -2355,16 +2788,19 @@ def main() -> int:
     log(json.dumps({"timings": tier_phase(torch, marks, card)}))
     mesh_run = mesh_phase(torch, marks, card)
     log(json.dumps({"timings": mesh_run["timings"]}))
+    ingest_run = ingest_phase(torch, marks, card)
+    log(json.dumps({"timings": ingest_run["timings"]}))
     paths["launches"].update(cli_run["launches"])
     paths["launches"].update(mesh_run["launches"])
+    paths["launches"].update(ingest_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
     k2_paths = {"outcomes_from_keys regfile": k2_record["launches"], **{
         p: n for p, n in paths["launches"].items() if "chunked" in p}}
     max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"],
-                  mesh_run["k1_max_err"])
-    k2_err = k2_record["max_abs_err"]
+                  mesh_run["k1_max_err"], ingest_run["k1_max_err"])
+    k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),
                      matches_plain=k2_err == 0)

@@ -7,7 +7,8 @@ written for Hopper (``csrc/taint_fast.cu``).  It imports torch and numpy, never 
 nothing of ``shrewd_tpu``; ``compat`` carries the reference's inputs across.
 The paths mirror the reference's:
 
-- ``isa``    — the µop opcode/OpClass tables
+- ``isa``    — the µop opcode/OpClass tables and the scalar µop
+  interpreter
 - ``trace``  — the ``Trace`` window, its ``.npz`` format, the synthetic
   workload generator
 - ``native`` — ctypes binding to the serial C++ runtime in ``csrc/``
@@ -26,7 +27,10 @@ The paths mirror the reference's:
   fault-injection plan that exercises both
 - ``campaign``, ``stats``, ``obs``, ``sim``, ``main`` — plans, the
   orchestrator, its stats tree, tracing, exit events and the CLI
-  (``python -m shrewd_tpu_torch run|resume``)
+  (``python -m shrewd_tpu_torch run|resume|hostdiff``)
+- ``ingest``, ``service`` — real workload binaries: the ptrace capture,
+  the macro→µop lifters, the 64-bit emulator, the artifact store and the
+  journaled ingest pipeline with its write-ahead journal
 
 Entry points run on the CUDA cards (a mesh over every visible card) unless
 the caller passes ``device="cpu"`` (the CLI: ``--platform cpu``).

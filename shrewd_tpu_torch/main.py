@@ -8,15 +8,18 @@ from its config dump alone:
     python -m shrewd_tpu_torch run plan.json --outdir out --debug-flags Campaign
     python -m shrewd_tpu_torch resume out/campaign_ckpt --outdir out2
     python -m shrewd_tpu_torch run plan.json --elastic-dir coord --worker w0
+    python -m shrewd_tpu_torch hostdiff --workload workloads/sort.c --trials 32
 
 (the last one, started once per worker process with the same plan and
 directory, shares the campaign over a lease board; ``--chaos-plan`` adds a
-deterministic failure schedule).
+deterministic failure schedule; ``hostdiff`` builds the workload and the
+ptrace tools, flips the same register bits on the host CPU and in the
+replay, and prints the agreement as one JSON line).
 
 ``--platform cpu`` runs on the CPU instead.  Run artifacts land in
 ``--outdir`` as ``config.json`` / ``stats.txt`` / ``stats.json``
-(``python/m5/main.py:227-248`` m5out analog).  ``hostdiff``, ``trace`` and
-``bench`` come with later slices and exit with rc 2.
+(``python/m5/main.py:227-248`` m5out analog).  ``trace`` and ``bench``
+come with later slices and exit with rc 2.
 """
 
 from __future__ import annotations
@@ -263,8 +266,23 @@ def cmd_resume(args) -> int:
     return _drive(orch, args)
 
 
+def cmd_hostdiff(args) -> int:
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+
+    rep = hd.run_diff(args.trials, args.seed, args.workload, mode=args.mode,
+                      device=_device(args))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rep, f, indent=1)
+    print(json.dumps({k: rep[k] for k in
+                      ("trials", "host_avf", "device_avf", "avf_abs_err",
+                       "agreement_exact", "agreement_vulnerable",
+                       "cis_overlap")}))
+    return 0
+
+
 def cmd_later(args) -> int:
-    """``hostdiff``, ``trace`` and ``bench``: not in the port yet."""
+    """``trace`` and ``bench``: not in the port yet."""
     _log(f"{args.cmd}: comes with a later slice of the PyTorch port "
          "(python -m shrewd_tpu runs the JAX package's)")
     return 2
@@ -385,9 +403,18 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--outdir", default="m5out")
     p.set_defaults(fn=cmd_resume)
 
-    for name, desc in (("hostdiff", "host-silicon differential AVF "
-                                    "campaign"),
-                       ("trace", "Exec-style instruction trace of a window"),
+    p = sub.add_parser("hostdiff", parents=[common],
+                       help="host-silicon differential AVF campaign")
+    p.add_argument("--trials", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--workload", default="workloads/sort.c")
+    p.add_argument("--mode", default="output",
+                   choices=("output", "liveness", "abi", "emu64", "device64",
+                            "fp"))
+    p.add_argument("--out", default="")
+    p.set_defaults(fn=cmd_hostdiff)
+
+    for name, desc in (("trace", "Exec-style instruction trace of a window"),
                        ("bench", "headline benchmark (one JSON line)")):
         p = sub.add_parser(name, parents=[common],
                            help=f"{desc} (a later slice of the port)")

@@ -5,9 +5,11 @@ whole window per trial, so a trial's cost grows with the window.  Here:
 
 1. **Golden boundary states.**  One fault-free pass over the window, chunk
    by chunk (size S), records the architectural state at every chunk
-   boundary (``native.boundary_pass``, the serial C++ golden replay).  With
-   the NOP-padded SoA layout it is the *preprocessed window*
-   (``ops/window.py``), built once and shared through a process registry.
+   boundary (``native.boundary_pass``, the serial C++ golden replay; the
+   dense scan for a VA-space memmap trace, which the C++ replay does not
+   model).  With the NOP-padded SoA layout it is the *preprocessed
+   window* (``ops/window.py``), built once and shared through a process
+   registry and, given ``store=``, the artifact store.
 2. **Landing-chunk start.**  Until its fault lands a trial IS the golden
    run, so it starts from the golden boundary of its landing chunk.
 3. **Convergence resolution.**  At each boundary a trial froze (detected,
@@ -17,8 +19,8 @@ whole window per trial, so a trial's cost grows with the window.  Here:
 Two chunk engines share the driver:
 
 - ``exact``: the dense scan (``ops/replay.py``) per chunk, full reg + mem
-  state per lane.  A torch step loop in this slice: it runs the fallback
-  lanes and the gates.
+  state per lane.  A torch step loop: it runs the fallback lanes, the
+  gates, and memmap traces (the only engine that takes them).
 - ``taint``: the deviation-set chunk kernel per chunk (``ops/taint_cuda.py
   taint_chunk_cuda``, K2): the cross-chunk state is the k-entry deviation
   set.  Escape/overflow lanes re-run on the exact engine, so outcomes stay
@@ -35,9 +37,6 @@ the C++ recorder) and K2's packed stream are built once per chunk and
 shared by its waves.  Per wave it gathers the lanes' setup values
 (``setup_gather``), launches K2, and resolves convergence, the carry
 horizon (code -3) and the end classification on the device.
-
-Not in this slice: the artifact store (``store=``), VA-space memmap traces
-and the JAX-scan boundary pass that served them.
 """
 
 from __future__ import annotations
@@ -49,7 +48,8 @@ import torch
 
 from shrewd_tpu_torch import native
 from shrewd_tpu_torch.isa import uops as U
-from shrewd_tpu_torch.models.o3 import KIND_LATCH_OP, KIND_REGFILE, Fault
+from shrewd_tpu_torch.models.o3 import (KIND_LATCH_OP, KIND_REGFILE, Fault,
+                                        null_fault)
 from shrewd_tpu_torch.ops import classify as C
 from shrewd_tpu_torch.ops import window as W
 from shrewd_tpu_torch.ops.replay import ReplayResult, TraceArrays, replay
@@ -87,12 +87,8 @@ class _Carry(NamedTuple):
 
 def _build_window(kernel, S: int, digest: str) -> W.PreprocessedWindow:
     """Pad the trace into the SoA chunk layout and run the golden boundary
-    pass (the native one; the JAX package's scan fallback served memmap
-    traces, which this slice does not take)."""
-    if kernel.memmap is not None:
-        raise NotImplementedError(
-            "VA-space memmap traces come with a later slice of the PyTorch "
-            "port")
+    pass: the native one, or for a memmap trace the dense scan chunk by
+    chunk under the null fault (the JAX package's scan fallback)."""
     trace = kernel.trace
     n = int(trace.n)
     C_ = (n + S - 1) // S
@@ -115,27 +111,56 @@ def _build_window(kernel, S: int, digest: str) -> W.PreprocessedWindow:
     gb_mem = np.empty((C_ + 1, mem_words), np.uint32)
     gb_reg[0] = np.asarray(trace.init_reg, np.uint32)
     gb_mem[0] = np.asarray(trace.init_mem, np.uint32)
-    native.boundary_pass(tr_host, S, gb_reg, gb_mem)
-    W.STATS["builds"] += 1
-    return W.PreprocessedWindow(
+    mm = kernel.memmap
+    win = W.PreprocessedWindow(
         n=n, S=S, nphys=nphys, mem_words=mem_words, trace_digest=digest,
-        tr=tr_host, gb_reg=gb_reg, gb_mem=gb_mem)
+        tr=tr_host, gb_reg=gb_reg, gb_mem=gb_mem, memmap=mm,
+        mm_cluster_pad=(padded(mm.uop_cluster.cpu().numpy(), -1)
+                        if mm is not None else None))
+    if mm is None:
+        native.boundary_pass(tr_host, S, gb_reg, gb_mem)
+    else:
+        # coverage is inert under the null fault, so the pass streams zeros
+        dev = kernel.device
+        trd = win.tr_dev(dev)
+        reg = torch.as_tensor(gb_reg[0].astype(np.int64), device=dev)
+        mem = torch.as_tensor(gb_mem[0].astype(np.int64), device=dev)
+        null = null_fault(dev)
+        for c in range(C_):
+            lo, hi = c * S, (c + 1) * S
+            r = replay(TraceArrays(**{f: trd[f][lo:hi]
+                                      for f in W.TRACE_FIELDS}),
+                       reg, mem, null, torch.zeros(S, device=dev),
+                       memmap=win.chunk_memmap(c, dev), index_offset=lo)
+            reg, mem = r.reg[0], r.mem[0]
+            gb_reg[c + 1] = reg.cpu().numpy()
+            gb_mem[c + 1] = mem.cpu().numpy()
+    W.STATS["builds"] += 1
+    return win
 
 
 def preprocess_window(kernel, chunk: int,
                       store=None) -> W.PreprocessedWindow:
     """The preprocessed window for ``(kernel.trace, chunk)``: a registry
-    hit, else a build (registered)."""
-    if store is not None:
-        raise NotImplementedError(
-            "the window store needs ingest/store.py ArtifactStore, which a "
-            "later slice of the PyTorch port brings")
+    hit, then (given ``store``, memmap-free kernels) a store hit, else a
+    build that back-fills both.  Store persistence is single-flighted on
+    the ``(digest, S)`` object dir, so concurrent campaigns share one
+    build."""
     n = int(kernel.trace.n)
     S = int(min(chunk, n))
     digest = trace_digest(kernel.trace)
-    win = W.lookup(digest, S)
+    win = W.lookup(digest, S, kernel.memmap)
     if win is not None:
         return win
+    if store is not None and kernel.memmap is None:
+        from shrewd_tpu_torch.ingest.store import axes_key
+
+        with store.lock(digest, axes_key(W.store_axes(S))):
+            win = W.load_from_store(store, digest, S)
+            if win is None:
+                win = _build_window(kernel, S, digest)
+                W.save_to_store(store, win)
+        return W.register(win)
     return W.register(_build_window(kernel, S, digest))
 
 
@@ -185,6 +210,11 @@ class ChunkedCampaign:
                 "kernel for CUDA tensors) — use engine='taint'")
         if engine not in ENGINES:
             raise ValueError(f"unknown chunk engine {engine!r}")
+        if engine != "exact" and kernel.memmap is not None:
+            raise ValueError(
+                "fast chunked engines carry deviation sets, not memory "
+                "images, and cannot replay VA-space memmap traces — use "
+                "engine='exact'")
         self.engine = engine
 
         if max_batch is None:
@@ -246,7 +276,9 @@ class ChunkedCampaign:
         """One chunk of the exact engine for B lanes → (reg', mem', det,
         trap, div, eq)."""
         tr, cov = self._chunk(c)
-        r = replay(tr, reg_b, mem_b, fault_b, cov, index_offset=c * self.S)
+        r = replay(tr, reg_b, mem_b, fault_b, cov,
+                   memmap=self.window.chunk_memmap(c, self.device),
+                   index_offset=c * self.S)
         eq = (r.reg == gb_r1).all(1) & (r.mem == gb_m1).all(1)
         return r.reg, r.mem, r.detected, r.trapped, r.diverged, eq
 

@@ -29,13 +29,21 @@ def outcome_of(detected, trapped, corrupt) -> torch.Tensor:
 
 
 def classify(result: ReplayResult, golden: ReplayResult,
-             compare_regs: bool = True) -> torch.Tensor:
+             compare_regs: bool = True, reg_mask: torch.Tensor | None = None,
+             mem_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Per-lane outcome classes int32[B]; ``golden`` is a batch of one (or
-    of B).  (The reference's live-subset masks serve the host-diff layer,
-    a later slice.)"""
-    state_diff = (result.mem != golden.mem).any(dim=-1)
+    of B).  ``reg_mask`` (bool[nphys]) / ``mem_mask`` (bool[mem_words])
+    restrict the comparison to the state the code after the window reads
+    (``ingest/hostdiff.py``, ``ingest/liveness.py``)."""
+    mem_diff = result.mem != golden.mem
+    if mem_mask is not None:
+        mem_diff = mem_diff & mem_mask
+    state_diff = mem_diff.any(dim=-1)
     if compare_regs:
-        state_diff = state_diff | (result.reg != golden.reg).any(dim=-1)
+        reg_diff = result.reg != golden.reg
+        if reg_mask is not None:
+            reg_diff = reg_diff & reg_mask
+        state_diff = state_diff | reg_diff.any(dim=-1)
     return outcome_of(result.detected, result.trapped,
                       result.diverged | state_diff)
 

@@ -1,7 +1,7 @@
 """The dense trial scan: inject → propagate, batched over lanes.
 
-Port of ``shrewd_tpu/ops/replay.py`` (``TraceArrays``, ``_div4``,
-``_mulhi``, ``_fp4``, ``_alu`` and ``replay`` without a memmap).  Each lane
+Port of ``shrewd_tpu/ops/replay.py`` (``TraceArrays``, ``MemMap``,
+``_div4``, ``_mulhi``, ``_fp4``, ``_alu`` and ``replay``).  Each lane
 carries its full machine state (nphys + mem_words words); a Python loop over
 the µop window takes the place of ``lax.scan`` and the lane dimension is
 written out where the JAX package used ``vmap``.  The fixed intra-step phase
@@ -71,6 +71,53 @@ class TraceArrays(NamedTuple):
         device→host copy, read by the step loops for uniform values."""
         cols = torch.stack(list(self)).T.tolist()
         return [tuple(c) for c in cols]
+
+
+class MemMap(NamedTuple):
+    """VA-space crash model for lifted traces (the silicon DUE channel),
+    as ``shrewd_tpu/ops/replay.py MemMap``.
+
+    The lift compacts the touched address clusters into one dense replay
+    array, so "address in [0, mem_words)" is a far denser validity set
+    than the host's page map.  With a MemMap the replay un-folds each
+    access to its virtual address (replay address − the µop's cluster
+    delta) and traps where silicon would: a load outside every mapped
+    region, a store outside every writable one.  A valid hit in another
+    cluster is routed to that cluster's words; a mapped VA that no
+    cluster tracks goes to the scratch word ``mem_words - 1``.  A µop
+    with ``uop_cluster < 0`` keeps the dense range test.
+
+    Every field is an int64 tensor; the addresses are low-32 projections
+    (uint32 values), as in the replay."""
+
+    uop_cluster: torch.Tensor   # [n]  cluster index per µop (-1: legacy)
+    cl_lo: torch.Tensor         # [k]  cluster VA lo
+    cl_span: torch.Tensor       # [k]  hi − lo, bytes
+    cl_word_off: torch.Tensor   # [k]  word offset in replay memory
+    ld_lo: torch.Tensor         # [r]  mapped-region lo (load validity)
+    ld_span: torch.Tensor       # [r]
+    st_lo: torch.Tensor         # [w]  writable-region lo (store validity)
+    st_span: torch.Tensor       # [w]
+
+    def to(self, device) -> "MemMap":
+        return MemMap(*(x.to(device) for x in self))
+
+
+def _memmap_access(mm: MemMap, clu: int, addr, op, mem_words: int,
+                   deltas: list):
+    """(valid, slot) of a memory access at a µop of cluster ``clu`` ≥ 0
+    under the VA map: (B, k) compares against the clusters and regions,
+    values in int64 masked to 32 bits."""
+    va = (addr - deltas[min(max(clu, 0), len(deltas) - 1)]) & M32
+    offs = (va[:, None] - mm.cl_lo) & M32                 # (B, k)
+    in_cl = offs < mm.cl_span
+    any_cl = in_cl.any(1)
+    slot_cl = torch.where(in_cl, (offs >> 2) + mm.cl_word_off, 0).sum(1)
+    ld_ok = (((va[:, None] - mm.ld_lo) & M32) < mm.ld_span).any(1) | any_cl
+    st_ok = (((va[:, None] - mm.st_lo) & M32) < mm.st_span).any(1)
+    valid = _where(op == U.STORE, st_ok, ld_ok)
+    slot = torch.where(any_cl, slot_cl, mem_words - 1) & (mem_words - 1)
+    return valid, slot
 
 
 class ReplayResult(NamedTuple):
@@ -345,11 +392,9 @@ def replay(tr: TraceArrays, init_reg: torch.Tensor, init_mem: torch.Tensor,
     the per-µop detection probability.  ``index_offset`` is the global
     index of ``tr``'s first µop: the chunked path (``ops/chunked.py``)
     passes a chunk's start, so the faults' global coordinates land inside
-    the chunk."""
-    if memmap is not None:
-        raise NotImplementedError(
-            "the VA-space memmap trap model comes with a later slice of "
-            "the PyTorch port")
+    the chunk.  ``memmap`` (lifted traces only) switches the memory trap
+    test from the dense range to the VA map (``MemMap``); its
+    ``uop_cluster`` covers ``tr``'s µops."""
     dev = init_reg.device
     nphys = init_reg.shape[-1]
     mem_words = init_mem.shape[-1]
@@ -365,6 +410,13 @@ def replay(tr: TraceArrays, init_reg: torch.Tensor, init_mem: torch.Tensor,
     diverged = torch.zeros_like(live)
     ftag = fp.entry & idx_mask
     sc_host = shadow_cov.tolist()
+    clu_host = None
+    if memmap is not None:
+        memmap = memmap.to(dev)
+        clu_host = memmap.uop_cluster.tolist()
+        # per-cluster fold delta, 4·word_off − lo (mod 2**32)
+        deltas = [(4 * w - lo) & M32 for w, lo in zip(
+            memmap.cl_word_off.tolist(), memmap.cl_lo.tolist())]
 
     for i, (op0, dstr, s1, s2, imm0, tk) in enumerate(tr.host()):
         # 1. storage-fault landing (entry masked to the register space)
@@ -396,8 +448,12 @@ def replay(tr: TraceArrays, init_reg: torch.Tensor, init_mem: torch.Tensor,
         mem_trap = False
         if is_mem is not False:
             addr = _xor(eff, fp.xor_mask(KIND_LSQ_ADDR, i))
-            valid = ((addr & 3) == 0) & ((addr >> 2) < mem_words)
-            slot = (addr >> 2) & (mem_words - 1)
+            if clu_host is not None and clu_host[i] >= 0:
+                valid, slot = _memmap_access(memmap, clu_host[i], addr, op,
+                                             mem_words, deltas)
+            else:
+                valid = ((addr & 3) == 0) & ((addr >> 2) < mem_words)
+                slot = (addr >> 2) & (mem_words - 1)
             mem_trap = _and(is_mem, ~valid, live)
         div_trap = False
         if _or(div_s, div_u) is not False:

@@ -21,7 +21,12 @@ has more escapes than the budget.
 The fast pass goes through ``ops/taint_cuda.py taint_fast_cuda``, which
 launches the Hopper kernel for CUDA tensors and runs its plain version for
 CPU tensors: the kernel's device alone decides.  The config's ``pallas*``
-params are not read.  Not in the port yet: memmaps.
+params are not read.
+
+A kernel with a ``memmap`` (``ops/replay.py MemMap``, lifted traces only)
+takes the dense scan on every path, as the reference's: the VA-space trap
+model lives in the dense replay alone, and the fast pass's validity test
+would disagree on memory faults.
 """
 
 from __future__ import annotations
@@ -54,11 +59,13 @@ N_STRATA = 8
 
 class TrialKernel:
     def __init__(self, trace: Trace, cfg: O3Config | None = None,
-                 minor_cfg=None, device=None):
+                 minor_cfg=None, device=None, memmap=None):
         """``minor_cfg`` (``models.minor.MinorConfig``) shapes latch
         faults.  ``device=None`` means the CUDA card; it raises when there
-        is none.  Pass ``device="cpu"`` to run on the CPU."""
+        is none.  Pass ``device="cpu"`` to run on the CPU.  ``memmap``
+        (``ops/replay.py MemMap``) is a lifted trace's VA-space map."""
         self.device = resolve_device(device)
+        self.memmap = memmap.to(self.device) if memmap is not None else None
         self.cfg = cfg if cfg is not None else O3Config()
         self.minor_cfg = minor_cfg
         self.trace = trace
@@ -91,9 +98,6 @@ class TrialKernel:
         self._stream = None
         self._samplers: dict = {}
         self._replicas: dict = {}       # on_device: one per other device
-        # VA-space memory map of a lifted trace: a later slice; the chunked
-        # path (ops/chunked.py) reads it as the JAX package's does
-        self.memmap = None
         # taint observability: escape counts feed campaign stats
         self.escapes = 0
         self.taint_trials = 0
@@ -111,7 +115,7 @@ class TrialKernel:
         if priority_to_shadow is not None:
             cfg.priority_to_shadow = priority_to_shadow
         return TrialKernel(self.trace, cfg, self.minor_cfg,
-                           device=self.device)
+                           device=self.device, memmap=self.memmap)
 
     def on_device(self, device) -> "TrialKernel":
         """This kernel's replica on ``device`` (itself on its own device),
@@ -124,7 +128,8 @@ class TrialKernel:
         key = str(torch.device(device))
         if key not in self._replicas:
             self._replicas[key] = TrialKernel(self.trace, self.cfg,
-                                              self.minor_cfg, device=device)
+                                              self.minor_cfg, device=device,
+                                              memmap=self.memmap)
         return self._replicas[key]
 
     # --- dense path ---------------------------------------------------------
@@ -138,7 +143,7 @@ class TrialKernel:
 
     def _replay(self, faults: Fault) -> ReplayResult:
         return replay(self.tr, self.init_reg, self.init_mem, faults,
-                      self.shadow_cov)
+                      self.shadow_cov, memmap=self.memmap)
 
     def run_batch(self, faults: Fault) -> torch.Tensor:
         """Fault batch → outcome classes int32[B] through the dense scan
@@ -257,7 +262,10 @@ class TrialKernel:
     def run_batch_hybrid(self, faults: Fault,
                          may_latch: bool = True) -> np.ndarray:
         """Fast pass for all lanes → row pass for load escapes → dense
-        scan for overflows; outcomes equal ``run_batch``'s."""
+        scan for overflows; outcomes equal ``run_batch``'s.  With a
+        memmap every lane takes the dense scan."""
+        if self.memmap is not None:
+            return self.run_batch(faults).cpu().numpy()
         res = self.taint_fast(faults, may_latch=may_latch)
         out = res.outcome.cpu().numpy().copy()
         return self.resolve_escapes(faults, out, res.escaped.cpu().numpy(),
@@ -289,7 +297,11 @@ class TrialKernel:
 
     def oracle_outcomes(self, faults: Fault) -> np.ndarray:
         """Per-trial outcomes from the serial C++ oracle (``csrc/``, via
-        the port's ``native``).  A missing or broken native build raises."""
+        the port's ``native``).  A missing or broken native build raises.
+        The C++ oracle has no VA-space memmap model, so a memmap kernel's
+        oracle is its dense scan, as the reference's."""
+        if self.memmap is not None:
+            return self.run_batch(faults).cpu().numpy()
         f = [x.cpu().numpy() for x in faults]
         return native.golden_trials(self.trace, *f,
                                     self.shadow_cov.cpu().numpy(),
@@ -318,7 +330,8 @@ class TrialKernel:
         (the reference pads its fixed-size pick with an out-of-range index
         that its scatter drops)."""
         faults = self.sample_batch(keys, structure)
-        if self.cfg.replay_kernel == "dense":
+        if self.cfg.replay_kernel == "dense" or self.memmap is not None:
+            # memmap (VA-trap) semantics exist only in the dense scan
             return (self.run_batch(faults), faults,
                     torch.zeros((), dtype=torch.int32, device=self.device))
         res = self.taint_fast(faults, may_latch=structure == "latch")

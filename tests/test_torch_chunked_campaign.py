@@ -14,6 +14,7 @@ import pytest
 
 from shrewd_tpu.ops import chunked as RC
 from shrewd_tpu_torch import compat
+from shrewd_tpu_torch.ingest.store import ArtifactStore
 from shrewd_tpu_torch.models.o3 import O3Config
 from shrewd_tpu_torch.ops import chunked as PC
 from shrewd_tpu_torch.ops import window as W
@@ -161,14 +162,24 @@ def test_tally_matches_outcomes():
     assert tally.dtype == np.int64 and tally.sum() == 64
 
 
-def test_engines_and_window_options():
+def test_engines_and_window_options(tmp_path):
     _, mine = mk_pair()
     with pytest.raises(ValueError, match="follows the device"):
         PC.ChunkedCampaign(mine, chunk=128, engine="pallas")
     with pytest.raises(ValueError, match="unknown chunk engine"):
         PC.ChunkedCampaign(mine, chunk=128, engine="nope")
-    with pytest.raises(NotImplementedError, match="ArtifactStore"):
-        PC.preprocess_window(mine, 128, store=object())
+    # the store tier came with the ingest slice: a build is stored, and a
+    # cleared registry re-opens it from the store without a rebuild
+    store = ArtifactStore(str(tmp_path / "store"))
+    W.clear_registry()
+    built = PC.preprocess_window(mine, 128, store=store)
+    W.clear_registry()
+    builds, hits = W.STATS["builds"], W.STATS["store_hits"]
+    opened = PC.preprocess_window(mine, 128, store=store)
+    assert (W.STATS["builds"], W.STATS["store_hits"]) == (builds, hits + 1)
+    assert opened.source == "store" and opened is not built
+    np.testing.assert_array_equal(opened.gb_mem, built.gb_mem)
+    W.clear_registry()
     assert PC.ChunkedCampaign(mine, chunk=128).engine == "taint"
     dense = TrialKernel(mine.trace, O3Config(replay_kernel="dense"),
                         device="cpu")

@@ -12,6 +12,8 @@ the port only (no JAX), so on a machine with the card run them as
 bitwise against its plain PyTorch version on the same device tensors.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -946,3 +948,171 @@ def test_tier_plan_on_card_equals_cpu(cuda, tmp_path, mode):
                      sorted((k, r.tallies.tolist(), r.trials)
                             for k, r in orch.results.items())))
     assert docs[0] == docs[1]
+
+
+# --- real workload binaries: memmap replay, lifted windows, hostdiff ---------
+
+needs_toolchain = pytest.mark.skipif(
+    any(shutil.which(x) is None for x in ("gcc", "g++", "objdump", "nm")),
+    reason="host toolchain required")
+
+
+@pytest.fixture(scope="module")
+def sort_ingest(tmp_path_factory):
+    """``workloads/sort.c`` ingested at the reference test's axes with the
+    preprocess stage (chunk 512) → (store, the window traces)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.ingest.pipeline import IngestPipeline
+    from shrewd_tpu_torch.ingest.store import ArtifactStore
+    from shrewd_tpu_torch.trace import format as tf
+
+    root = tmp_path_factory.mktemp("sort_ingest")
+    store = ArtifactStore(str(root / "store"))
+    digest = store.put_binary(open(hd.build_tools(
+        "workloads/sort.c").workload, "rb").read())
+    pipe = IngestPipeline(str(root / "t"), store, digest, axes={
+        "interval": 1500, "k": 2, "max_steps": 20000, "preprocess": True,
+        "chunk": 512})
+    plan = pipe.run()
+    return store, [tf.load(store.payload_path(digest, pipe.key,
+                                              e["file"]))[0]
+                   for e in plan["simpoints"]]
+
+
+@pytest.fixture(scope="module")
+def sort_output_lift():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    return hd.capture_and_lift_to_output(hd.build_tools("workloads/sort.c"))
+
+
+@needs_toolchain
+def test_memmap_replay_on_card_equals_cpu(cuda, sort_output_lift):
+    """The VA-space trap model's (B, k) compares on the card: register
+    and LSQ-address flips, every final state and flag equal to the CPU's;
+    and ``hostdiff.run_device`` on the card equals it on the CPU."""
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.models.o3 import KIND_LSQ_ADDR
+
+    trace, meta = sort_output_lift
+    rng = np.random.default_rng(8)
+    mem = np.nonzero(np.isin(trace.opcode, (U.LOAD, U.STORE)))[0]
+    n = 512
+    lsq = rng.random(n) < 0.5
+    kind = np.where(lsq, KIND_LSQ_ADDR, 1)
+    cycle = rng.integers(0, trace.n, n)
+    entry = np.where(lsq, rng.choice(mem, n), rng.integers(0, 16, n))
+    args = (kind, cycle, entry, rng.integers(0, 32, n), np.ones(n))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        k = TrialKernel(trace, O3Config(enable_shrewd=False), device=dev,
+                        memmap=hd.memmap_from_meta(meta, device=dev))
+        res[dev.type] = k._replay(compat.fault_from_arrays(*args,
+                                                           device=dev))
+    for f in ("reg", "mem", "detected", "trapped", "diverged"):
+        assert torch.equal(getattr(res["cuda"], f).cpu(),
+                           getattr(res["cpu"], f)), f
+    assert bool(res["cpu"].trapped.any())
+    coords = hd.sample_coords(256, meta["window_macro_ops"], seed=1)
+    np.testing.assert_array_equal(
+        hd.run_device(trace, meta, coords, resolve_diverged=False,
+                      device=cuda),
+        hd.run_device(trace, meta, coords, resolve_diverged=False,
+                      device="cpu"))
+
+
+@needs_toolchain
+def test_k1_matches_plain_on_lifted_windows(cuda, sort_ingest):
+    """K1 at the lifted windows' shapes (nphys 64, a lifted opcode mix):
+    regfile lanes and lanes of every kind, bitwise its plain version; the
+    hybrid campaign unit equals the dense scan and the C++ oracle."""
+    _store, traces = sort_ingest
+    for t in traces:
+        kernel = TrialKernel(t, O3Config(), device=cuda)
+        keys = prng.trial_keys(prng.campaign_key(0), 4096)
+        got, ref = _both(kernel, kernel.sample_batch(keys, "regfile"), 16,
+                         False)
+        _assert_equal(got, ref)
+        got, ref = _both(kernel, _mixed(kernel, 2048, 13), 16, True)
+        _assert_equal(got, ref)
+        faults = kernel.sample_batch(keys[:512], "regfile")
+        hybrid = kernel.run_batch_hybrid(faults, may_latch=False)
+        np.testing.assert_array_equal(
+            hybrid, kernel.run_batch(faults).cpu().numpy())
+        np.testing.assert_array_equal(hybrid,
+                                      kernel.oracle_outcomes(faults))
+
+
+@needs_toolchain
+def test_store_opened_chunked_k2_matches_plain(cuda, sort_ingest,
+                                               monkeypatch):
+    """``ChunkedCampaign(kernel, chunk=512, store=…)`` opens the window
+    the preprocess stage stored (no rebuild), launches K2 on every fast
+    wave, each launch bitwise its plain version, and gives the exact
+    engine's outcomes."""
+    from shrewd_tpu_torch.ops import chunked as chunked_mod, window as W
+
+    store, traces = sort_ingest
+    launches = []
+    real = chunked_mod.taint_chunk_cuda
+
+    def held(*a, **kw):
+        got = real(*a, **kw)
+        ref = taint_chunk(*a, **{x: v for x, v in kw.items()
+                                 if x != "stream"})
+        for x, y in zip(got, ref):
+            assert torch.equal(x.to(torch.int64), y.to(torch.int64))
+        launches.append(1)
+        return got
+
+    monkeypatch.setattr(chunked_mod, "taint_chunk_cuda", held)
+    for t in traces:
+        W.clear_registry()
+        builds, hits = W.STATS["builds"], W.STATS["store_hits"]
+        kernel = TrialKernel(t, O3Config(), device=cuda)
+        camp = ChunkedCampaign(kernel, chunk=512, store=store)
+        assert camp.engine == "taint" and camp.C >= 2
+        assert (W.STATS["builds"], W.STATS["store_hits"]) == (builds,
+                                                               hits + 1)
+        keys = prng.trial_keys(prng.campaign_key(5), 512)
+        exact_waves = []
+        trial_chunk = camp._trial_chunk
+        camp._trial_chunk = lambda *a: exact_waves.append(1) or \
+            trial_chunk(*a)
+        launches.clear()
+        out = camp.outcomes_from_keys(keys, "regfile")
+        # one K2 launch per fast wave; the fallback lanes' waves are the
+        # exact engine's, counted in the same total
+        assert launches and len(launches) == \
+            camp.last_stats["waves"] - len(exact_waves)
+        exact = ChunkedCampaign(TrialKernel(t, O3Config(), device="cpu"),
+                                chunk=512, engine="exact")
+        np.testing.assert_array_equal(out, exact.outcomes_from_keys(
+            keys.cpu(), "regfile"))
+    W.clear_registry()
+
+
+@needs_toolchain
+def test_hostdiff_cli_on_the_card(cuda, tmp_path):
+    import contextlib
+    import io
+    import json
+
+    from shrewd_tpu_torch.main import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["hostdiff", "--trials", "8", "--out",
+                     str(tmp_path / "d.json")]) == 0
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert list(line) == ["trials", "host_avf", "device_avf", "avf_abs_err",
+                          "agreement_exact", "agreement_vulnerable",
+                          "cis_overlap"]
+    rep = json.loads((tmp_path / "d.json").read_text())
+    assert rep["device_memmap"] is True
+    assert "diverged_resolution_failed" not in rep
+    assert sum(rep.get("diverged_resolved", {}).values()) == \
+        rep["escalated_total"]

@@ -6,7 +6,9 @@ the campaign loop, the cache, MESI and NoC tier kernels, the campaign
 CLI (``run`` in all three modes and ``resume``, and a tier plan), a
 campaign on a 3-shard mesh under a chaos plan as an elastic worker, and
 the multi-process launcher (its elastic mode, whose worker process runs
-without the block) on the CPU."""
+without the block), and, where the host toolchain is present, the ingest
+of a workload binary (``IngestPipeline.run`` with its preprocess stage)
+and ``hostdiff.run_device`` with and without escalation, on the CPU."""
 
 import os
 import shutil
@@ -122,6 +124,25 @@ with contextlib.redirect_stdout(io.StringIO()) as out:
                    "--platform", "cpu", "--num-batches", "2",
                    "--no-reference"]) == 0
 assert json.loads(out.getvalue())["ok"]
+import shutil
+if all(shutil.which(x) for x in ("gcc", "g++", "objdump", "nm")):
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.ingest.pipeline import IngestPipeline
+    from shrewd_tpu_torch.ingest.store import ArtifactStore
+    paths = hd.build_tools("workloads/sort.c")
+    lt, meta = hd.capture_and_lift_to_output(paths)
+    c = hd.sample_coords(8, meta["window_macro_ops"], 0)
+    assert hd.run_device(lt, meta, c, resolve_diverged=False,
+                         device="cpu").shape == (8,)
+    assert hd.run_device(lt, meta, c[:2], paths=paths,
+                         device="cpu").shape == (2,)
+    with tempfile.TemporaryDirectory() as d:
+        st = ArtifactStore(os.path.join(d, "store"))
+        dig = st.put_binary(open(paths.workload, "rb").read())
+        ing = IngestPipeline(os.path.join(d, "t"), st, dig, axes={
+            "interval": 1500, "k": 2, "max_steps": 20000,
+            "preprocess": True, "chunk": 512})
+        assert len(ing.run()["simpoints"]) == 2
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded

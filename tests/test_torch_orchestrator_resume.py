@@ -184,10 +184,19 @@ def _ref_init_on(mesh):
 
 
 def test_cli_later_subcommands_exit_nonzero(capsys):
+    """``trace`` and ``bench`` come with later slices (rc 2); ``hostdiff``
+    came with the ingest slice and, like every entry point, runs on the
+    card unless ``--platform cpu``: without a card it raises before any
+    build or capture (tests/test_torch_hostdiff.py runs it)."""
+    import torch
+
     from shrewd_tpu_torch import main as main_mod
 
-    for cmd in ("hostdiff", "trace", "bench"):
+    for cmd in ("trace", "bench"):
         assert main_mod.main([cmd]) == 2
         assert "later slice" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main_mod.main(["hostdiff", "--workload", "no/such.c"])
 
 

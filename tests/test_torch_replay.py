@@ -122,13 +122,39 @@ def test_dense_replay_matches_vmapped_reference(kind):
 
 
 def test_dense_replay_memmap_waits_for_a_later_slice():
-    pt = compat.trace_from_arrays(*_window(n=32))
-    with pytest.raises(NotImplementedError):
-        R.replay(R.TraceArrays.from_trace(pt, "cpu"),
-                 torch.zeros(64, dtype=torch.int64),
-                 torch.zeros(256, dtype=torch.int64),
-                 compat.fault_from_arrays(*_faults(pt, [1], 2, 0), "cpu"),
-                 torch.zeros(32), memmap=object())
+    """The memmap came with the ingest slice: a MemMap whose µops all
+    carry cluster -1 keeps the dense range test, so on every fault kind
+    (LSQ-address flips included) the replay equals the one without a
+    memmap and the reference's with the same map.  (The trap model's
+    branches: tests/test_torch_memmap.py.)"""
+    t = _window(n=128)
+    pt = compat.trace_from_arrays(*t)
+    f = _faults(t, list(range(10)), 96, seed=5)
+    fields = dict(uop_cluster=np.full(t.n, -1), cl_lo=[0x1000, 0x9000],
+                  cl_span=[0x100, 0x100], cl_word_off=[0, 64],
+                  ld_lo=[0x1000], ld_span=[0x10000], st_lo=[0x1000],
+                  st_span=[0x8000])
+    mm = R.MemMap(**{n: torch.as_tensor(np.asarray(v, np.int64))
+                     for n, v in fields.items()})
+    rmm = RR.MemMap(**{n: jnp.asarray(np.asarray(
+        v, np.int32 if n in ("uop_cluster", "cl_word_off") else np.uint32))
+        for n, v in fields.items()})
+    args = (R.TraceArrays.from_trace(pt, "cpu"),
+            torch.as_tensor(pt.init_reg.astype(np.int64)),
+            torch.as_tensor(pt.init_mem.astype(np.int64)),
+            compat.fault_from_arrays(*f, "cpu"), torch.zeros(t.n))
+    got, plain = R.replay(*args, memmap=mm), R.replay(*args)
+    trR = RR.TraceArrays.from_trace(t)
+    want = jax.vmap(lambda x: RR.replay(
+        trR, jnp.asarray(t.init_reg), jnp.asarray(t.init_mem), x,
+        jnp.zeros(t.n, jnp.float32), memmap=rmm))(
+            RefFault(*(jnp.asarray(x) for x in f)))
+    for name in ("reg", "mem", "detected", "trapped", "diverged"):
+        assert torch.equal(getattr(got, name), getattr(plain, name)), name
+        np.testing.assert_array_equal(
+            getattr(got, name).numpy(),
+            np.asarray(getattr(want, name)).astype(
+                np.int64 if name in ("reg", "mem") else bool))
 
 
 @pytest.mark.parametrize("compare_regs", [True, False])
