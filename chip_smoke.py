@@ -26,11 +26,11 @@ JAX.  Phases, each fatal:
    "regfile")``, with the kernel's launch count zeroed just before it: the
    tally sums to the batch, the first 4096 keys give the JAX reference's
    pinned tally, and 2048 outcomes equal the serial C++ oracle's;
-6. timings with CUDA events (median of 5 after a warm-up; the host
-   loops, row pass, dense re-run and ``run_keys``, one timed call each,
-   warmed by phase 5; K1's plain version once, warmed by phase 4) beside
-   the card's
-   name and power limit; K1's bound two ways (the full body on every
+6. timings with CUDA events (median of 3 after a warm-up; the host
+   loops, row pass and dense re-run, one timed call each, warmed by
+   phase 5; ``run_keys`` the seconds of phase 5's counted run; K1's
+   plain version once, warmed by phase 4) beside the card's name and
+   power limit; K1's bound two ways (the full body on every
    step from each landing, and the function's own need from the
    kernel's hit counts: the kernels line's) and its longest walk;
 7. the chunked window — ``generate_trace(seed=16, n=131072, nphys=256,
@@ -56,9 +56,9 @@ JAX.  Phases, each fatal:
    outcomes = the serial C++ oracle, (iii) the 64 taint outcomes = the JAX
    reference's, pinned, (iv) taint = exact at S = 15000 with
    ``carry_horizon=2``, some lanes carried;
-10. the chunked path's timings (median of 3 after a warm-up; one call
-    of ``outcomes_from_keys``, warmed by phase 9): trials/s of
-    ``outcomes_from_keys``, K2 on each of the main path's waves and its
+10. the chunked path's timings (one timed call after a warm-up;
+    ``outcomes_from_keys`` and its exact fallback timed in phase 9's
+    counted run): trials/s of ``outcomes_from_keys``, K2 on each of the main path's waves and its
     plain version (timed once, in (a)), the chunk record, the setup
     gathers, the exact fallback and the preprocessing; K2's bound over
     those waves (the function's own need, and the full body from each
@@ -72,8 +72,8 @@ JAX.  Phases, each fatal:
     the tally sums to the batch, the first 1024 keys give the JAX
     reference's pinned tally, 2048 outcomes equal the serial C++
     oracle's under the kernel's coverage, and K1 equals its plain version
-    bitwise on all 131072 lanes; then the call timed once and K1 on its
-    lanes (median of 5);
+    bitwise on all 131072 lanes; the counted call's seconds, and K1 on
+    its lanes (median of 3);
 12. the campaign loop: ``run_until_ci(ShardedCampaign(kernel, None, s,
     stratify=True), seed=0, simpoint_id=0, structure_id=k,
     batch_size=4096, target_halfwidth=0.01)`` for regfile and fu, K1's
@@ -181,6 +181,28 @@ JAX.  Phases, each fatal:
     lane for lane, with the peak allocated memory; the memmap dense
     replay's µs per step beside the same window's without the memmap.
     No gate holds a lifted window against a tally pinned elsewhere.
+17. a gem5 checkpoint through the port (``sort.c`` built as in phase 16):
+    (a) its marker window captured alone, ``snapshot_from_capture`` →
+    ``write_arch_snapshot`` (``m5.cpt``, the ``config.json`` sidecar and
+    gzipped stores) → ``load_arch_snapshot``: pc, the 16 GPRs and the
+    memory image equal the capture's; ``window_from_snapshot_lifted``
+    over every captured step: the emulator runs them all and the lift
+    rate is at least 0.95; the card's golden record of the restored
+    window neither diverges nor traps, its 16 GPRs equal the capture's
+    last step masked to 32 bits, and ``memchecker.check_trace`` finds
+    every load clean; (b) the campaign CLI in-process on a plan with one
+    ``CheckpointSpec(binary=…)`` simpoint (regfile and fu, batch 2048,
+    stratified, target 0.01), K1's count zeroed just before it, then on a
+    ``TraceFileSpec`` of the same window under the same name and seed:
+    rc 0, equal per-structure trials and outcomes in ``stats.json``,
+    every batch on the device tier, K1's launches exactly the batches
+    plus two per canary run and one per audited batch, no call of its
+    plain version on card tensors, K1 held against its plain version on
+    the first batch, ``stats.txt`` read back by ``load_stats_txt`` and
+    the plan's structures by ``load_config_json`` / ``find_params``; (c)
+    the CLI's ``trace -n 64 --all`` on the card, byte-equal to
+    ``--platform cpu``, then ``trace --pipeline -n 32`` and ``trace
+    --workload workloads/sort.c -n 16``: rc 0 and the lines asked for.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -211,14 +233,11 @@ N_PIN = 4096
 PIN_TALLY = [3095, 450, 551, 0]
 N_ORACLE = 2048
 N_MIXED = 16384
-REPS = 5                        # phase 6: median of 5
+REPS = 3                        # phases 6 and 11: K1 median of 3
 REPS_HOST = 1                   # phase 6's host-driven loops (row pass,
-                                # dense re-run, run_keys): seconds each,
-                                # one timed call (timing depth, no gate)
-REPS_CHUNKED = 3                # phase 10's K2 waves, chunk record, setup
-REPS_CHUNKED_E2E = 1            # phase 10's outcomes_from_keys: each run
-                                # holds a 65536-step exact fallback of
-                                # 15-25 s
+                                # dense re-run): seconds each, one timed
+                                # call (timing depth, no gate)
+REPS_CHUNKED = 1                # phase 10's K2 waves, chunk record, setup
 MIXED_COVERAGE = 0.5            # shadow coverage of batches (b) and (c)
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # K1's work is 32-bit integer compare/select/logic: 132 SMs x 64 INT32
@@ -312,6 +331,8 @@ N_CHUNK_FU = 512                # phase 12: the chunked route, fu keys
 INGEST_CHUNK = 1024             # phase 16: the preprocess stage's chunk
 N_HOSTDIFF = 4096               # phase 16 (d): run_device card vs CPU
 N_SPLIT = 8                     # phase 16 (d): host / device / escalation
+CPT_BATCH = 2048                # phase 17 (b): the checkpoint campaign's
+CPT_TARGET = 0.01               # batch and target: a few batches
 # phase 13, the campaign CLI: the JAX reference's results at target 0.005
 # for the same campaign (batch 4096, stratified, fupool; the orchestrator
 # derives its keys as run_until_ci does, so these are run_until_ci's;
@@ -841,11 +862,10 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
             times.append((time.monotonic() - t0) * 1e3)
         return statistics.median(times)
 
-    # phase 9's counted run was the warm-up
-    del exact_log[:]
-    e2e_ms = time_ms(torch, lambda: camp.outcomes_from_keys(keys, "regfile"),
-                     REPS_CHUNKED_E2E, warm=False)
-    # the exact fallback inside each timed run (none: 0 lanes, 0 ms)
+    # outcomes_from_keys and its exact fallback: phase 9's counted run,
+    # timed there (a second run only to time it took 15-25 s)
+    e2e_ms = t_main * 1e3
+    # the exact fallback inside that run (none: 0 lanes, 0 ms)
     fb_ms = statistics.median([x[0] * 1e3 for x in exact_log] or [0.0])
     fb_lanes = exact_log[-1][1] if exact_log else 0
     k2_wave_ms = [time_ms(torch, lambda a=a, kw=kw: taint_chunk_cuda(*a, **kw),
@@ -1022,14 +1042,13 @@ def structure_phases(torch, dev, marks, kernel, keys, card) -> dict:
                                        f"{s} at full width"))
         t_plain = time.monotonic() - t0
         del got
-        t0 = time.monotonic()
-        kernel.run_keys(keys, s)
-        torch.cuda.synchronize()
-        run_ms = (time.monotonic() - t0) * 1e3
+        # the counted run's own time (a second run only to time it cost
+        # 4-6 s a structure)
+        run_ms = t_main * 1e3
         k1_ms = time_ms(torch, lambda: taint_fast_cuda(
             *args, **kw, stream=kernel.packed_stream))
         if plain_calls[0]:
-            fail(f"{s}: the timed run called K1's plain version")
+            fail(f"{s}: the K1 timing called K1's plain version")
         lanes = structure_lanes(faults, kernel.trace.n)
         launches[f"run_keys {s}"] = n_launch
         timings[f"run_keys_{s}"] = {
@@ -1041,9 +1060,8 @@ def structure_phases(torch, dev, marks, kernel, keys, card) -> dict:
             f"== C++ oracle, K1 == plain on all {N_KEYS} lanes ("
             f"{t_plain:.1f} s); {lanes['sentinel']} sentinel and "
             f"{lanes['bubble']} bubble lanes; {run_ms:.1f} ms = "
-            f"{N_KEYS / (run_ms / 1e3):,.0f} trials/s, K1 {k1_ms:.3f} ms "
-            f"({card}; first run {t_main:.1f} s, {escapes} escaped lanes "
-            f"resolved)")
+            f"{N_KEYS / (run_ms / 1e3):,.0f} trials/s (the counted run), K1 "
+            f"{k1_ms:.3f} ms ({card}; {escapes} escaped lanes resolved)")
     marks("11 structure path")
 
     # 12. the campaign loop
@@ -2492,6 +2510,263 @@ def ingest_phase(torch, marks, card) -> dict:
             "k2_max_err": k2_err[0]}
 
 
+def checkpoint_phase(torch, marks, card) -> dict:
+    """Phase 17, a gem5 checkpoint through the port on the card → the
+    timings, K1's launches on the checkpoint CLI's path and its largest
+    difference from its plain version there.  (a) restore: ``sort.c``'s
+    marker window captured, written as an ``m5.cpt`` and restored, the
+    emulator run forward from it and the stream lifted, the card's golden
+    record held against the capture and the memory checker; (b) the
+    campaign CLI on a ``CheckpointSpec`` plan and on a ``TraceFileSpec``
+    of the same window; (c) the CLI's ``trace``.  The window depends on
+    this machine's gcc, so every gate holds the card against the capture,
+    the CPU or K1's plain version, never against a pinned tally."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch.campaign.plan import (CampaignPlan, CheckpointSpec,
+                                                TraceFileSpec)
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.ingest.configfile import (find_params,
+                                                    load_config_json)
+    from shrewd_tpu_torch.ingest.cpt import (load_arch_snapshot,
+                                             snapshot_from_capture,
+                                             write_arch_snapshot)
+    from shrewd_tpu_torch.ingest.lift import read_nativetrace
+    from shrewd_tpu_torch.ingest.statsfile import load_stats_txt
+    from shrewd_tpu_torch.ingest.warm import window_from_snapshot_lifted
+    from shrewd_tpu_torch.main import main as cli
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops import taint_cuda, trial
+    from shrewd_tpu_torch.ops.taint_cuda import taint_fast_cuda
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.trace import format as tf
+    from shrewd_tpu_torch.utils import debug
+    from shrewd_tpu_torch.utils.memchecker import check_trace
+
+    t_phase = time.monotonic()
+    d = tempfile.mkdtemp(prefix="chip_smoke_cpt_")
+    secs: dict = {}
+
+    # (a) restore: phase 16 built sort.c and the tracer (build_tools
+    # reuses them); one capture, run alone
+    paths = hd.build_tools("workloads/sort.c")
+    binary = str(paths.workload)
+    t0 = time.monotonic()
+    cap = os.path.join(d, "window.bin")
+    subprocess.run([str(paths.tracer), cap, f"{paths.begin:x}",
+                    f"{paths.end:x}", "2000000", binary], check=True,
+                   capture_output=True, text=True)
+    nt = read_nativetrace(cap)
+    secs["capture_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    cpt_dir = os.path.join(d, "cpt")
+    write_arch_snapshot(cpt_dir, snapshot_from_capture(nt))
+    snap = load_arch_snapshot(cpt_dir)
+    secs["restore_s"] = time.monotonic() - t0
+    image = np.concatenate([np.frombuffer(b, np.uint8) for _, b in
+                            nt.regions])
+    if (snap.pc != int(nt.steps[0][16])
+            or not np.array_equal(snap.int_regs[:16], nt.steps[0][:16])
+            or not np.array_equal(snap.mem, image)
+            or [v for v, _ in snap.regions] != [v for v, _ in nt.regions]):
+        fail("(a) the restored snapshot is not the capture's state")
+    n = len(nt.steps) - 1
+    t0 = time.monotonic()
+    trace, meta = window_from_snapshot_lifted(snap, binary, max_steps=n)
+    secs["emulate_lift_s"] = time.monotonic() - t0
+    if meta["emu_steps"] != n or meta["stats"]["lift_rate"] < 0.95:
+        fail(f"(a) emulator ran {meta['emu_steps']} of {n} steps "
+             f"({meta['emu_stop_reason']}), lift rate "
+             f"{meta['stats']['lift_rate']}")
+    t0 = time.monotonic()
+    kernel = TrialKernel(trace, O3Config(enable_shrewd=False), device="cuda")
+    g = kernel.golden
+    torch.cuda.synchronize()
+    secs["golden_s"] = time.monotonic() - t0
+    if bool(g.diverged.any()) or bool(g.trapped.any()):
+        fail("(a) the card's golden replay of the restored window "
+             "diverged or trapped")
+    want = nt.steps[n][:16].astype(np.uint64) & np.uint64(0xFFFFFFFF)
+    if not np.array_equal(g.reg[0, :16].cpu().numpy(),
+                          want.astype(np.int64)):
+        fail("(a) the card's golden GPRs differ from the capture's last "
+             "step")
+    t0 = time.monotonic()
+    checked = check_trace(trace, golden_record=kernel.golden_rec)
+    secs["memcheck_s"] = time.monotonic() - t0
+    if checked.n_violations or not checked.n_loads:
+        fail(f"(a) memchecker on the card's golden record: "
+             f"{checked.n_violations} of {checked.n_loads} loads "
+             f"({checked.detail})")
+    del kernel, g
+    restore = {"steps": n, "uops": int(trace.n), "nphys": int(trace.nphys),
+               "mem_words": int(trace.mem_words),
+               "image_bytes": int(snap.mem.size),
+               "regions": len(snap.regions),
+               "lift_rate": meta["stats"]["lift_rate"],
+               "loads_checked": checked.n_loads, **secs}
+    log(f"(a) sort.c's marker window: {n} steps over {len(snap.regions)} "
+        f"regions ({snap.mem.size} bytes) captured in "
+        f"{secs['capture_s']:.1f} s, written as m5.cpt and restored in "
+        f"{secs['restore_s']:.2f} s (pc, 16 GPRs, image == the capture's); "
+        f"emulated {n} steps and lifted to {trace.n} µops (nphys "
+        f"{trace.nphys}, {trace.mem_words} words, lift rate "
+        f"{meta['stats']['lift_rate']}) in {secs['emulate_lift_s']:.1f} s; "
+        f"the card's golden record in {secs['golden_s']:.1f} s: no "
+        f"divergence or trap, 16 GPRs == the capture's last step; "
+        f"memchecker {checked.n_loads} loads clean in "
+        f"{secs['memcheck_s']:.1f} s ({card})")
+    marks("17 (a) restore")
+
+    # (b) the campaign CLI on the CheckpointSpec plan (counted), then on a
+    # TraceFileSpec of the same window under the same name and seed
+    npz = os.path.join(d, "window.npz")
+    tf.save(npz, trace, meta={"source": "checkpoint"})
+    base = dict(structures=["regfile", "fu"], batch_size=CPT_BATCH,
+                target_halfwidth=CPT_TARGET, stratify=True, seed=0)
+    plans = {"checkpoint": CampaignPlan(simpoints=[CheckpointSpec(
+        name="cpt", cpt_dir=cpt_dir, binary=binary, max_steps=n)], **base),
+             "trace file": CampaignPlan(simpoints=[TraceFileSpec(
+                 name="cpt", path=npz)], **base)}
+    sizes: list = []
+    kept: list = []
+    plain_cuda = [0]
+    launch, plain = trial.taint_fast_cuda, taint_cuda.taint_fast_plain
+
+    def sized(*a, **kw):
+        got = launch(*a, **kw)
+        sizes.append(int(a[3].kind.shape[0]))
+        if sizes[-1] == CPT_BATCH and not kept:
+            kept.append((a, {x: v for x, v in kw.items() if x != "stream"},
+                         got))
+        return got
+
+    def counted_plain(*a, **kw):
+        if a[3].kind.device.type == "cuda":
+            plain_cuda[0] += 1
+        return plain(*a, **kw)
+
+    runs: dict = {}
+    for name, plan in plans.items():
+        plan_path = os.path.join(d, f"{name.replace(' ', '_')}.json")
+        plan.dump_json(plan_path)
+        out = os.path.join(d, name.replace(" ", "_"))
+        if name == "checkpoint":
+            trial.taint_fast_cuda = sized
+            taint_cuda.taint_fast_plain = counted_plain
+            taint_fast_cuda.launches = 0
+        t0 = time.monotonic()
+        rc = cli(["run", plan_path, "--outdir", out])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if name == "checkpoint":
+            n_k1 = taint_fast_cuda.launches
+        trial.taint_fast_cuda = launch
+        taint_cuda.taint_fast_plain = plain
+        if rc != 0:
+            fail(f"(b) {name} plan: CLI rc {rc}")
+        stats = _read_json(os.path.join(out, "stats.json"))
+        doc = _read_json(os.path.join(out, "campaign_ckpt",
+                                      "campaign.json"))
+        per = {s: {"trials": stats["cpt"][s]["trials"],
+                   "outcomes": stats["cpt"][s]["outcomes"]}
+               for s in base["structures"]}
+        runs[name] = {"wall_s": wall, "results": per, "doc": doc,
+                      "out": out, "stats": stats}
+    ckpt = runs["checkpoint"]
+    if ckpt["results"] != runs["trace file"]["results"]:
+        fail(f"(b) the CheckpointSpec plan's results {ckpt['results']} != "
+             f"the TraceFileSpec plan's {runs['trace file']['results']}")
+    doc = ckpt["doc"]
+    batches = trials = 0
+    for s, st in doc["state"]["cpt"].items():
+        batches += st["next_batch"]
+        trials += sum(st["tallies"])
+        if st["tier_trials"][1:] != [0, 0]:
+            fail(f"(b) {s}: tier trials {st['tier_trials']}")
+    mon = doc["integrity"]
+    want_k1 = batches + 2 * mon["canary_runs"] + mon["audit_batches"]
+    if (n_k1 != len(sizes) or not sizes or len(sizes) != want_k1
+            or sizes.count(CPT_BATCH) != batches):
+        fail(f"(b) K1 launches {n_k1} "
+             f"({sizes.count(CPT_BATCH)} of {CPT_BATCH} lanes) != "
+             f"{batches} batches + 2 x {mon['canary_runs']} canary runs + "
+             f"{mon['audit_batches']} audit samples")
+    if plain_cuda[0]:
+        fail("(b) K1's plain version ran on card tensors")
+    if not kept:
+        fail("(b) no batch launch of K1 was kept")
+    args, kw, got = kept[0]
+    max_err = compare(torch, got, plain(*args, **kw), "(b) first batch")
+    blocks = load_stats_txt(os.path.join(ckpt["out"], "stats.txt"))
+    for s in base["structures"]:
+        if blocks[-1][f"campaign.cpt.{s}.trials"] != \
+                ckpt["stats"]["cpt"][s]["trials"]:
+            fail(f"(b) stats.txt's {s} trials != stats.json's")
+    cfg = load_config_json(os.path.join(ckpt["out"], "config.json"))
+    if find_params(cfg, "structures") != [("structures",
+                                           base["structures"])]:
+        fail(f"(b) config.json's structures: "
+             f"{find_params(cfg, 'structures')}")
+    campaign = {"batches": batches, "trials": trials,
+                "wall_s": ckpt["wall_s"],
+                "trials_per_s": trials / ckpt["wall_s"],
+                "trace_file_wall_s": runs["trace file"]["wall_s"],
+                "k1_launches": len(sizes),
+                "canary_runs": mon["canary_runs"],
+                "audit_batches": mon["audit_batches"],
+                "results": ckpt["results"]}
+    log(f"(b) CLI on the CheckpointSpec plan (regfile, fu; batch "
+        f"{CPT_BATCH}, stratified, target {CPT_TARGET}): rc 0, {batches} "
+        f"batches, {trials} trials in {ckpt['wall_s']:.1f} s = "
+        f"{trials / ckpt['wall_s']:,.0f} trials/s, every batch on the "
+        f"device tier, K1 {len(sizes)} launches = {batches} batches + 2 x "
+        f"{mon['canary_runs']} canary runs + {mon['audit_batches']} audit "
+        f"samples, 0 plain calls, K1 == plain on the first batch; results "
+        f"== the TraceFileSpec plan's ({runs['trace file']['wall_s']:.1f} "
+        f"s) {json.dumps(ckpt['results'])}; stats.txt and config.json read "
+        f"back ({card})")
+    marks("17 (b) checkpoint campaign CLI")
+
+    # (c) the CLI's trace: on the card, and -n 64 --all against the CPU
+    lines = {}
+    trace_s = {}
+    for label, argv, want in (
+            ("all", ["-n", "64", "--all"], 64),
+            ("all cpu", ["-n", "64", "--all", "--platform", "cpu"], 64),
+            ("pipeline", ["--pipeline", "-n", "32"], 33),
+            ("workload", ["--workload", "workloads/sort.c", "-n", "16"],
+             16)):
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["trace", *argv])
+        torch.cuda.synchronize()
+        trace_s[label] = time.monotonic() - t0
+        lines[label] = buf.getvalue()
+        if rc != 0 or len(lines[label].splitlines()) != want:
+            fail(f"(c) trace {' '.join(argv)}: rc {rc}, "
+                 f"{len(lines[label].splitlines())} lines, not {want}")
+    debug.disable("Exec", "ExecResult", "ExecOpClass")
+    if lines["all"] != lines["all cpu"]:
+        fail("(c) trace -n 64 --all on the card != --platform cpu")
+    log(f"(c) trace -n 64 --all ({trace_s['all']:.1f} s) byte-equal to "
+        f"--platform cpu ({trace_s['all cpu']:.1f} s); --pipeline -n 32 "
+        f"({trace_s['pipeline']:.1f} s) and --workload sort.c -n 16 "
+        f"({trace_s['workload']:.1f} s): rc 0, the lines asked for")
+    shutil.rmtree(d, ignore_errors=True)
+    timings = {"card": card, "restore": restore, "campaign": campaign,
+               "trace_s": trace_s,
+               "checkpoint_phase_s": time.monotonic() - t_phase}
+    marks("17 (c) trace CLI")
+    return {"timings": timings, "launches": {"checkpoint CLI": len(sizes)},
+            "k1_max_err": max_err}
+
+
 def escalations(rep: dict, what: str) -> dict:
     """A hostdiff report's emulator escalations; fails when the emulator
     could not run (``run_device`` then labels every escalated trial SDC)
@@ -2731,8 +3006,8 @@ def main() -> int:
                      REPS_HOST, warm=False)
     dense_ms = time_ms(torch, lambda: kernel.run_batch(dense_lanes),
                        REPS_HOST, warm=False)
-    e2e_ms = time_ms(torch, lambda: kernel.run_keys(keys, "regfile"),
-                     REPS_HOST, warm=False)
+    # run_keys: phase 5's counted main path, timed there
+    e2e_ms = t_main * 1e3
 
     k = kw["k"]
     n, B = trace.n, N_KEYS
@@ -2790,16 +3065,20 @@ def main() -> int:
     log(json.dumps({"timings": mesh_run["timings"]}))
     ingest_run = ingest_phase(torch, marks, card)
     log(json.dumps({"timings": ingest_run["timings"]}))
+    ckpt_run = checkpoint_phase(torch, marks, card)
+    log(json.dumps({"timings": ckpt_run["timings"]}))
     paths["launches"].update(cli_run["launches"])
     paths["launches"].update(mesh_run["launches"])
     paths["launches"].update(ingest_run["launches"])
+    paths["launches"].update(ckpt_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
     k2_paths = {"outcomes_from_keys regfile": k2_record["launches"], **{
         p: n for p, n in paths["launches"].items() if "chunked" in p}}
     max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"],
-                  mesh_run["k1_max_err"], ingest_run["k1_max_err"])
+                  mesh_run["k1_max_err"], ingest_run["k1_max_err"],
+                  ckpt_run["k1_max_err"])
     k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),

@@ -29,10 +29,9 @@ A chaos plan (``chaos.py``) injects faults at the hook points the
 orchestrator owns; an elastic context (``parallel/elastic.py``) shares the
 campaign with other worker processes through a lease board.
 
-Not in this slice, each raising ``NotImplementedError`` before any trial
-runs: the static certification (``analysis.certify``), a persistent
-compilation cache and ``CheckpointSpec`` simpoints.  None is reachable
-from a default plan.
+Not in the port yet, each raising ``NotImplementedError`` before any
+trial runs: the static certification (``analysis.certify``) and a
+persistent compilation cache.  Neither is reachable from a default plan.
 """
 
 from __future__ import annotations
@@ -50,8 +49,7 @@ from shrewd_tpu_torch import stats as statsmod
 from shrewd_tpu_torch.obs import clock as obs_clock
 from shrewd_tpu_torch.obs import export as obs_export
 from shrewd_tpu_torch.obs import trace as obs_trace
-from shrewd_tpu_torch.campaign.plan import (COHERENCE_SP_NAME, CampaignPlan,
-                                            CheckpointSpec)
+from shrewd_tpu_torch.campaign.plan import COHERENCE_SP_NAME, CampaignPlan
 from shrewd_tpu_torch.ops import classify as C
 from shrewd_tpu_torch.ops.trial import TrialKernel
 from shrewd_tpu_torch.parallel import elastic as elastic_mod
@@ -280,9 +278,6 @@ class Orchestrator:
             raise ValueError(f"device {device!r} is not on the mesh {mesh}")
         # every option this slice does not run is refused here, before the
         # first trial (none of them is reachable from a default plan)
-        if any(isinstance(sp, CheckpointSpec) for sp in plan.simpoints):
-            raise NotImplementedError(
-                f"CheckpointSpec simpoints (checkpoint ingest) {LATER}")
         if plan.analysis.certify != "off":
             raise NotImplementedError(
                 f"static certification (analysis.certify="

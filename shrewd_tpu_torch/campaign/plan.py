@@ -13,8 +13,7 @@ SimPoint sources polymorph over ``SimPointSpec``:
 - ``WorkloadSpec``   — synthesize a window (traffic-generator tier);
 - ``TraceFileSpec``  — load a captured ``.npz`` window (ElasticTrace analog);
 - ``CheckpointSpec`` — ingest a gem5 checkpoint, restore + re-warm
-  (SURVEY §5.4).  Its ingest path comes with a later slice of the port:
-  ``build_trace`` raises ``NotImplementedError``.
+  (SURVEY §5.4).
 """
 
 from __future__ import annotations
@@ -80,9 +79,15 @@ class CheckpointSpec(SimPointSpec):
     workload = Child(synth.WorkloadConfig)
 
     def build_trace(self) -> Trace:
-        raise NotImplementedError(
-            "checkpoint ingest (ingest/cpt) comes with a later slice of the "
-            "PyTorch port")
+        from shrewd_tpu_torch.ingest import (load_arch_snapshot,
+                                             window_from_snapshot,
+                                             window_from_snapshot_lifted)
+        snap = load_arch_snapshot(self.cpt_dir, self.thread)
+        if self.binary:
+            trace, _meta = window_from_snapshot_lifted(
+                snap, self.binary, max_steps=self.max_steps)
+            return trace
+        return window_from_snapshot(snap, self.workload, self.warmup)
 
 
 # Tier-qualified structures route to the non-O3 fault kernels

@@ -10,16 +10,22 @@ from its config dump alone:
     python -m shrewd_tpu_torch run plan.json --elastic-dir coord --worker w0
     python -m shrewd_tpu_torch hostdiff --workload workloads/sort.c --trials 32
 
-(the last one, started once per worker process with the same plan and
+(the third, started once per worker process with the same plan and
 directory, shares the campaign over a lease board; ``--chaos-plan`` adds a
 deterministic failure schedule; ``hostdiff`` builds the workload and the
 ptrace tools, flips the same register bits on the host CPU and in the
 replay, and prints the agreement as one JSON line).
 
-``--platform cpu`` runs on the CPU instead.  Run artifacts land in
-``--outdir`` as ``config.json`` / ``stats.txt`` / ``stats.json``
-(``python/m5/main.py:227-248`` m5out analog).  ``trace`` and ``bench``
-come with later slices and exit with rc 2.
+    python -m shrewd_tpu_torch trace -n 64 --all
+    python -m shrewd_tpu_torch trace --pipeline -n 32
+    python -m shrewd_tpu_torch trace --workload workloads/sort.c -n 16
+
+(an Exec-style trace of a window's golden record, recorded on the card,
+or its scoreboard pipeline timelines).  ``--platform cpu`` runs on the
+CPU instead.  Run artifacts land in ``--outdir`` as ``config.json`` /
+``stats.txt`` / ``stats.json`` (``python/m5/main.py:227-248`` m5out
+analog).  ``bench`` needs a benchmark of the port's own, which does not
+exist yet, and exits with rc 2.
 """
 
 from __future__ import annotations
@@ -281,10 +287,54 @@ def cmd_hostdiff(args) -> int:
     return 0
 
 
-def cmd_later(args) -> int:
-    """``trace`` and ``bench``: not in the port yet."""
-    _log(f"{args.cmd}: comes with a later slice of the PyTorch port "
-         "(python -m shrewd_tpu runs the JAX package's)")
+def cmd_trace(args) -> int:
+    """Dump an Exec-style instruction trace of a replay window
+    (trace/exec_trace.py; the reference's --debug-flags Exec family,
+    src/cpu/exetrace.cc).  The golden record is made on the card unless
+    ``--platform cpu``."""
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.trace.exec_trace import exec_trace
+    from shrewd_tpu_torch.utils import debug
+
+    if args.all:
+        debug.enable("ExecAll")
+    elif not debug.enabled("Exec"):
+        debug.enable("Exec")
+    if args.results:
+        debug.enable("ExecResult")
+    if args.workload:
+        from shrewd_tpu_torch.ingest import hostdiff as hd
+
+        paths = hd.build_tools(workload_c=args.workload)
+        tr, _meta = hd.capture_and_lift(paths)
+    else:
+        from shrewd_tpu_torch.trace.synth import WorkloadConfig, generate
+
+        tr = generate(WorkloadConfig(n=args.window, nphys=64,
+                                     mem_words=1024,
+                                     working_set_words=256,
+                                     seed=args.seed))
+    if args.pipeline:
+        from shrewd_tpu_torch.models.timing import compute_scoreboard
+        from shrewd_tpu_torch.trace.pipeview import dump_pipeview
+
+        sb = compute_scoreboard(tr)
+        n = dump_pipeview(tr, sb, out=sys.stdout, start=args.start,
+                          count=args.n)
+        _log(f"rendered {n} µops")
+        return 0
+    kern = TrialKernel(tr, O3Config(pallas="off"), device=_device(args))
+    n = exec_trace(tr, kern.golden_rec, out=sys.stdout, start=args.start,
+                   count=args.n)
+    _log(f"traced {n} µops")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """``bench``: the port has no benchmark of its own yet."""
+    _log("bench: the PyTorch port has no benchmark of its own yet "
+         "(python -m shrewd_tpu bench runs the JAX package's)")
     return 2
 
 
@@ -414,11 +464,27 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--out", default="")
     p.set_defaults(fn=cmd_hostdiff)
 
-    for name, desc in (("trace", "Exec-style instruction trace of a window"),
-                       ("bench", "headline benchmark (one JSON line)")):
-        p = sub.add_parser(name, parents=[common],
-                           help=f"{desc} (a later slice of the port)")
-        p.set_defaults(fn=cmd_later)
+    p = sub.add_parser("trace", parents=[common],
+                       help="Exec-style instruction trace of a window")
+    p.add_argument("--workload", default="",
+                   help="C workload to capture+lift (default: synth trace)")
+    p.add_argument("--start", type=int, default=0)
+    p.add_argument("-n", type=int, default=64, help="µops to print")
+    p.add_argument("--window", type=int, default=256,
+                   help="synthetic window length (independent of -n)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--all", action="store_true",
+                   help="ExecAll (results + opclasses)")
+    p.add_argument("--results", action="store_true", help="ExecResult")
+    p.add_argument("--pipeline", action="store_true",
+                   help="render scoreboard pipeline timelines "
+                        "(the o3-pipeview analog) instead of exec lines")
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser("bench", parents=[common],
+                       help="headline benchmark (none in the port yet: "
+                            "rc 2)")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     _apply_common(args)

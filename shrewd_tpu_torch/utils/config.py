@@ -4,17 +4,40 @@ The port's copy of ``ConfigObject``, ``Param``, ``VectorParam`` and
 ``Child`` from ``shrewd_tpu/utils/config.py`` (the SimObject-param analog:
 declarative typed params, metaclass capture, ``to_dict``/``from_dict``
 round trip), so that a port config's ``to_dict()`` can be held against the
-reference's, and ``dump_json``, the ``config.json`` a campaign writes.  The
-unit-string param types and the ini dump are not needed by the port yet and
-are left out.
+reference's; the unit-string param types (``MemorySize``, ``Frequency``,
+``Time``); and the reproducibility dumps, ``dump_json`` (the
+``config.json`` a campaign writes) and ``dump_ini`` (the ``config.ini``
+that ``ingest/configfile.py`` reads back).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
+
+from shrewd_tpu_torch.utils import units
 
 _REQUIRED = object()
+
+
+# --- convertible unit types -------------------------------------------------
+
+class MemorySize(int):
+    """Byte count; accepts '64KiB'-style strings."""
+    def __new__(cls, value):
+        return super().__new__(cls, units.to_bytes(value))
+
+
+class Frequency(float):
+    """Hertz; accepts '3GHz'-style strings."""
+    def __new__(cls, value):
+        return super().__new__(cls, units.to_frequency(value))
+
+
+class Time(float):
+    """Seconds; accepts '10ns'-style strings."""
+    def __new__(cls, value):
+        return super().__new__(cls, units.to_seconds(value))
 
 
 def _convert(type_: type, value: Any) -> Any:
@@ -144,6 +167,15 @@ class ConfigObject:
             raise TypeError(
                 f"{type(self).__name__}: unknown params {sorted(overrides)}")
 
+    # --- traversal ---
+
+    def descendants(self, prefix: str = "root") -> Iterator[tuple[str, "ConfigObject"]]:
+        yield prefix, self
+        for name, child in self._children.items():
+            yield from child.descendants(f"{prefix}.{name}")
+
+    # --- dumps (the config.ini / config.json reproducibility contract) ---
+
     def to_dict(self) -> dict:
         out: dict[str, Any] = {"type": type(self).__name__}
         for name in self._params:
@@ -157,6 +189,22 @@ class ConfigObject:
         with open(path, "w") as f:
             json.dump(self.to_dict(), f, indent=2, default=str)
             f.write("\n")
+
+    def dump_ini(self, path) -> None:
+        lines = []
+        for secname, obj in self.descendants():
+            lines.append(f"[{secname}]")
+            lines.append(f"type={type(obj).__name__}")
+            for name in obj._params:
+                v = obj._values[name]
+                if isinstance(v, list):
+                    v = " ".join(str(x) for x in v)
+                lines.append(f"{name}={v}")
+            if obj._children:
+                lines.append("children=" + " ".join(obj._children))
+            lines.append("")
+        with open(path, "w") as f:
+            f.write("\n".join(lines))
 
     @classmethod
     def from_dict(cls, d: dict) -> "ConfigObject":

@@ -1116,3 +1116,101 @@ def test_hostdiff_cli_on_the_card(cuda, tmp_path):
     assert "diverged_resolution_failed" not in rep
     assert sum(rep.get("diverged_resolved", {}).values()) == \
         rep["escalated_total"]
+
+
+@pytest.fixture(scope="module")
+def sort_checkpoint(tmp_path_factory):
+    """One capture of ``workloads/sort.c``'s marker window written as an
+    ``m5.cpt`` with its sidecar → (checkpoint dir, binary, capture)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import subprocess
+
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.ingest.cpt import (snapshot_from_capture,
+                                             write_arch_snapshot)
+    from shrewd_tpu_torch.ingest.lift import read_nativetrace
+
+    paths = hd.build_tools("workloads/sort.c")
+    root = tmp_path_factory.mktemp("sort_cpt")
+    cap = root / "win.bin"
+    subprocess.run([str(paths.tracer), str(cap), f"{paths.begin:x}",
+                    f"{paths.end:x}", "2000000", str(paths.workload)],
+                   check=True, capture_output=True, text=True)
+    nt = read_nativetrace(str(cap))
+    cpt_dir = str(root / "cpt")
+    write_arch_snapshot(cpt_dir, snapshot_from_capture(nt))
+    return cpt_dir, str(paths.workload), nt
+
+
+@needs_toolchain
+def test_checkpoint_spec_campaign_on_card_equals_cpu(cuda, sort_checkpoint,
+                                                     tmp_path):
+    """A ``CheckpointSpec`` plan (the restored window, regfile and fu,
+    stratified) gives the CPU's results and checkpoint state on the card,
+    every batch on the device tier."""
+    import json
+    import os
+
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan, CheckpointSpec
+
+    cpt_dir, binary, _ = sort_checkpoint
+    plan = CampaignPlan(
+        simpoints=[CheckpointSpec(name="cpt", cpt_dir=cpt_dir,
+                                  binary=binary, max_steps=2000)],
+        structures=["regfile", "fu"], batch_size=512, max_trials=1024,
+        min_trials=1024, stratify=True, checkpoint_every=1)
+    docs = {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / dev)
+        o = Orchestrator(CampaignPlan.from_dict(plan.to_dict()),
+                         device=dev, outdir=out)
+        list(o.events())
+        with open(os.path.join(out, "campaign_ckpt", "campaign.json")) as f:
+            docs[dev] = json.load(f)["state"]
+    assert docs["cuda"] == docs["cpu"]
+    for st in docs["cuda"]["cpt"].values():
+        assert st["tier_trials"][1:] == [0, 0] and sum(st["tallies"]) == 1024
+
+
+def test_trace_cli_on_card_equals_cpu(cuda):
+    """``trace`` records its golden record on the card by default: the
+    same lines as ``--platform cpu``, value for value."""
+    import contextlib
+    import io
+
+    from shrewd_tpu_torch.main import main
+
+    outs = []
+    for extra in ([], ["--platform", "cpu"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(["trace", "-n", "64", "--all", *extra]) == 0
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 64
+
+
+@needs_toolchain
+def test_check_trace_clean_on_the_cards_golden_record(cuda,
+                                                      sort_checkpoint):
+    """The card's golden record of the restored window: no divergence or
+    trap, the capture's 16 GPRs after the same steps (masked to 32 bits),
+    and every load clean against the independent store history."""
+    from shrewd_tpu_torch.ingest.cpt import load_arch_snapshot
+    from shrewd_tpu_torch.ingest.warm import window_from_snapshot_lifted
+    from shrewd_tpu_torch.utils.memchecker import check_trace
+
+    cpt_dir, binary, nt = sort_checkpoint
+    n = len(nt.steps) - 1
+    trace, meta = window_from_snapshot_lifted(load_arch_snapshot(cpt_dir),
+                                              binary, max_steps=n)
+    assert meta["emu_steps"] == n and meta["stats"]["lift_rate"] >= 0.95
+    kernel = TrialKernel(trace, O3Config(enable_shrewd=False), device=cuda)
+    g = kernel.golden
+    assert not bool(g.diverged.any()) and not bool(g.trapped.any())
+    want = nt.steps[n][:16].astype(np.uint64) & np.uint64(0xFFFFFFFF)
+    np.testing.assert_array_equal(g.reg[0, :16].cpu().numpy(),
+                                  want.astype(np.int64))
+    r = check_trace(trace, golden_record=kernel.golden_rec)
+    assert r.n_violations == 0 and r.n_loads > 0, r.detail

@@ -6,9 +6,13 @@ the campaign loop, the cache, MESI and NoC tier kernels, the campaign
 CLI (``run`` in all three modes and ``resume``, and a tier plan), a
 campaign on a 3-shard mesh under a chaos plan as an elastic worker, and
 the multi-process launcher (its elastic mode, whose worker process runs
-without the block), and, where the host toolchain is present, the ingest
-of a workload binary (``IngestPipeline.run`` with its preprocess stage)
-and ``hostdiff.run_device`` with and without escalation, on the CPU."""
+without the block), the gem5 artifacts (an ``m5.cpt`` written and
+restored, a ``CheckpointSpec`` campaign through the ``Simulator``, its
+``config.ini`` and ``stats.txt`` read back, ``memchecker`` on its golden
+record) and the CLI's ``trace``, and, where the host toolchain is
+present, the ingest of a workload binary (``IngestPipeline.run`` with its
+preprocess stage), ``hostdiff.run_device`` with and without escalation
+and the lifted restore of a captured window, on the CPU."""
 
 import os
 import shutil
@@ -124,6 +128,42 @@ with contextlib.redirect_stdout(io.StringIO()) as out:
                    "--platform", "cpu", "--num-batches", "2",
                    "--no-reference"]) == 0
 assert json.loads(out.getvalue())["ok"]
+from shrewd_tpu_torch.campaign.plan import CheckpointSpec
+from shrewd_tpu_torch.ingest import configfile, cpt, statsfile, warm
+from shrewd_tpu_torch.sim import Simulator
+from shrewd_tpu_torch.trace import exec_trace, pipeview
+from shrewd_tpu_torch.utils import memchecker, units
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert main(["trace", "-n", "8", "--all", "--platform", "cpu"]) == 0
+    assert main(["trace", "--pipeline", "-n", "4", "--platform", "cpu"]) == 0
+assert len(out.getvalue().splitlines()) == 13, out.getvalue()
+import numpy as np
+rng = np.random.default_rng(0)
+with tempfile.TemporaryDirectory() as d:
+    cpt.write_arch_snapshot(os.path.join(d, "cpt"), cpt.ArchSnapshot(
+        cur_tick=0, version_tags=cpt.VERSION_TAGS, pc=0x1000,
+        int_regs=rng.integers(0, 2**63, 16, dtype=np.uint64),
+        float_regs=np.zeros(0, np.uint64),
+        mem=rng.integers(0, 256, 64, dtype=np.uint8),
+        thread_section="system.cpu.xc.0", regions=((0x600000, 64),)))
+    cp = CampaignPlan(simpoints=[CheckpointSpec(
+        name="c", cpt_dir=os.path.join(d, "cpt"), warmup=8,
+        workload=WorkloadConfig(n=96, nphys=32, mem_words=64,
+                                working_set_words=32, seed=7))],
+        structures=["regfile"], batch_size=32, max_trials=64, min_trials=64)
+    res = Simulator(cp, outdir=os.path.join(d, "out"), device="cpu").run()
+    assert res[("c", "regfile")].trials == 64, res
+    st = statsfile.load_stats_txt(os.path.join(d, "out", "stats.txt"))
+    assert st[0]["campaign.c.regfile.trials"] == 64, st
+    cp.dump_ini(os.path.join(d, "config.ini"))
+    tree = configfile.tree_from_ini(configfile.load_config_ini(
+        os.path.join(d, "config.ini")))
+    assert configfile.find_params(tree, "batch_size") == [
+        ("root.batch_size", "32")], tree
+    tr = cp.simpoints[0].build_trace()
+    gold = TrialKernel(tr, device="cpu").golden_rec
+    assert memchecker.check_trace(tr, golden_record=gold).n_violations == 0
+    assert units.to_bytes("2KiB") == 2048
 import shutil
 if all(shutil.which(x) for x in ("gcc", "g++", "objdump", "nm")):
     from shrewd_tpu_torch.ingest import hostdiff as hd
@@ -143,6 +183,19 @@ if all(shutil.which(x) for x in ("gcc", "g++", "objdump", "nm")):
             "interval": 1500, "k": 2, "max_steps": 20000,
             "preprocess": True, "chunk": 512})
         assert len(ing.run()["simpoints"]) == 2
+        from shrewd_tpu_torch.ingest.lift import read_nativetrace
+        cap = os.path.join(d, "win.bin")
+        import subprocess
+        subprocess.run([str(paths.tracer), cap, f"{paths.begin:x}",
+                        f"{paths.end:x}", "2000000", str(paths.workload)],
+                       check=True, capture_output=True)
+        cpt.write_arch_snapshot(os.path.join(d, "sort_cpt"),
+                                cpt.snapshot_from_capture(
+                                    read_nativetrace(cap)))
+        lt, meta = warm.window_from_snapshot_lifted(
+            cpt.load_arch_snapshot(os.path.join(d, "sort_cpt")),
+            str(paths.workload), max_steps=200)
+        assert meta["emu_steps"] == 200 and lt.n > 0, meta
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded

@@ -184,19 +184,24 @@ def _ref_init_on(mesh):
 
 
 def test_cli_later_subcommands_exit_nonzero(capsys):
-    """``trace`` and ``bench`` come with later slices (rc 2); ``hostdiff``
-    came with the ingest slice and, like every entry point, runs on the
-    card unless ``--platform cpu``: without a card it raises before any
-    build or capture (tests/test_torch_hostdiff.py runs it)."""
+    """``bench`` needs a benchmark of the port's own, which does not exist
+    yet (rc 2).  ``hostdiff`` came with the ingest slice and ``trace``
+    with the checkpoint slice; like every entry point they run on the
+    card unless ``--platform cpu``: without a card each raises before any
+    build, capture or golden record (tests/test_torch_hostdiff.py and
+    tests/test_torch_exec_trace.py run them)."""
     import torch
 
     from shrewd_tpu_torch import main as main_mod
 
-    for cmd in ("trace", "bench"):
-        assert main_mod.main([cmd]) == 2
-        assert "later slice" in capsys.readouterr().err
+    assert main_mod.main(["bench"]) == 2
+    assert "no benchmark" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main_mod.main(["hostdiff", "--workload", "no/such.c"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main_mod.main(["trace", "-n", "4"])
+    assert main_mod.main(["trace", "-n", "4", "--platform", "cpu"]) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 4
 
 

@@ -9,7 +9,9 @@ option whose engine comes with a later slice raises
 none of them; a plan naming a tier structure runs, and so does a plan
 with a chaos plan inline or in a file (the chaos engine came with the
 multi-device slice), as do a mesh, ``attach_chaos`` and
-``attach_elastic``."""
+``attach_elastic``, and (since the checkpoint slice) a ``CheckpointSpec``
+simpoint on the reference's literal checkpoint (``tests/test_ingest.py``),
+whose ``build_trace`` gives a valid window."""
 
 import json
 
@@ -128,10 +130,28 @@ def _later_options():
         p.pipeline.compilation_cache_dir = "cache"
 
     def checkpoint_spec(p):
-        p.simpoints.append(PP.CheckpointSpec(name="c", cpt_dir="cpt"))
+        # came with the checkpoint slice: held as working, on the literal
+        # checkpoint (test_later_slice_options_raise_before_a_trial)
+        p.simpoints.append(PP.CheckpointSpec(
+            name="c", cpt_dir="cpt", warmup=16,
+            workload=psynth.WorkloadConfig(**_WL)))
 
     return {"certify": certify, "compilation_cache_dir": cache_dir,
             "checkpoint_spec": checkpoint_spec}
+
+
+def _literal_cpt(tmp_path) -> str:
+    """The reference's literal checkpoint (``tests/test_ingest.py``)."""
+    import gzip
+
+    from test_ingest import _CPT_TEXT
+
+    d = tmp_path / "cpt.1000500"
+    d.mkdir()
+    (d / "m5.cpt").write_text(_CPT_TEXT)
+    with gzip.open(d / "system.physmem.store0.pmem", "wb") as f:
+        f.write(bytes(range(32)))
+    return str(d)
 
 
 _CHAOS = {"faults": [{"kind": "corrupt_tally", "at_batch": 1}]}
@@ -174,11 +194,22 @@ def _no_o3_step(monkeypatch) -> list:
 
 
 @pytest.mark.parametrize("option", sorted(_later_options()))
-def test_later_slice_options_raise_before_a_trial(option, monkeypatch):
-    """Every option of a later slice raises before the first trial."""
-    ran = _no_o3_step(monkeypatch)
+def test_later_slice_options_raise_before_a_trial(option, monkeypatch,
+                                                  tmp_path):
+    """Every option of a later slice raises before the first trial.  A
+    ``CheckpointSpec`` simpoint came with the checkpoint slice: its plan
+    runs both simpoints to the end."""
     plan = _tiny()
     _later_options()[option](plan)
+    if option == "checkpoint_spec":
+        plan.simpoints[-1].cpt_dir = _literal_cpt(tmp_path)
+        events = list(Orchestrator(plan, device="cpu").events())
+        assert events[-1][0].name == "CAMPAIGN_COMPLETE"
+        results = events[-1][1]
+        assert sorted(results) == [("c", "regfile"), ("w0", "regfile")]
+        assert all(r.trials == 64 for r in results.values())
+        return
+    ran = _no_o3_step(monkeypatch)
     with pytest.raises(NotImplementedError, match="later slice|jax"):
         list(Orchestrator(plan, device="cpu").events())
     assert not ran
@@ -203,13 +234,29 @@ def test_tier_structures_run_without_the_o3_step(structure, monkeypatch):
 @pytest.mark.parametrize("what", ["mesh", "attach_chaos", "attach_elastic",
                                   "checkpoint_spec_build"])
 def test_later_slice_entry_points_raise(what, tmp_path):
-    """``CheckpointSpec.build_trace`` still raises; a mesh,
-    ``attach_chaos`` and ``attach_elastic`` came with the multi-device
-    slice and are held here as working: each run gives the plain run's
-    tally."""
+    """A mesh, ``attach_chaos`` and ``attach_elastic`` came with the
+    multi-device slice and ``CheckpointSpec.build_trace`` with the
+    checkpoint slice; each is held here as working: each run gives the
+    plain run's tally, and ``build_trace`` on the literal checkpoint a
+    valid window over its state, the reference's."""
     if what == "checkpoint_spec_build":
-        with pytest.raises(NotImplementedError, match="ingest"):
-            PP.CheckpointSpec(name="c", cpt_dir="cpt").build_trace()
+        from shrewd_tpu.ingest import load_arch_snapshot
+
+        cpt = _literal_cpt(tmp_path)
+        spec = PP.CheckpointSpec(name="c", cpt_dir=cpt, warmup=0,
+                                 workload=psynth.WorkloadConfig(**_WL))
+        trace = spec.build_trace()
+        trace.validate()
+        assert trace.n == _WL["n"]
+        assert trace.init_reg[:8].tolist() == [1, 0, 2, 0, 0xFFFFFFFF, 0,
+                                               0x100, 0]
+        assert trace.init_mem[:8].tolist() == [
+            int.from_bytes(bytes(range(4 * i, 4 * i + 4)), "little")
+            for i in range(8)]
+        ref = RP.CheckpointSpec.from_dict(spec.to_dict()).build_trace()
+        for f in ref._fields:
+            np.testing.assert_array_equal(getattr(trace, f), getattr(ref, f))
+        assert load_arch_snapshot(cpt).pc == 4198400
         return
     from shrewd_tpu_torch.chaos import ChaosEngine
     from shrewd_tpu_torch.parallel.elastic import ElasticContext
