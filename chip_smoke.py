@@ -28,24 +28,28 @@ JAX.  Phases, each fatal:
    pinned tally, and 2048 outcomes equal the serial C++ oracle's;
 6. timings with CUDA events (median of 3 after a warm-up; the host
    loops, row pass and dense re-run, one timed call each, warmed by
-   phase 5; ``run_keys`` the seconds of phase 5's counted run; K1's
+   phase 5; ``record_golden`` one timed call, warmed by phase 3;
+   ``run_keys`` the seconds of phase 5's counted run; K1's
    plain version once, warmed by phase 4) beside the card's name and
    power limit; K1's bound two ways (the full body on every
    step from each landing, and the function's own need from the
    kernel's hit counts: the kernels line's) and its longest walk;
-7. the chunked window — ``generate_trace(seed=16, n=131072, nphys=256,
+7. the chunked window — ``generate_trace(seed=16, n=32768, nphys=256,
    mem_words=4096, working_set_words=1024)`` as a ``TrialKernel`` on the
-   card — preprocessed at S = 65536 (C = 2); its last boundary equals the
-   C++ golden replay's final state;
+   card — preprocessed at S = 16384 (C = 2); its last boundary equals the
+   C++ golden replay's final state (phases 7-10 and 12 run at a quarter
+   of bench.py's depth, cut twice for the script's time limit: two
+   chunks and two fast waves, the same keys and gate lanes as at 131072
+   µops);
 8. the chunk kernel (K2) against its plain version on the same device
    tensors (sets, live-step counts and the five flags bitwise equal):
    (b) 2048 lanes of every fault kind with ``may_latch`` at a shadow
    coverage of 0.5, a third of them carried in with seeded sets and
    negative coordinates, on the NOP-padded last chunk of S = 15000 (C =
-   9), so that some are detected; (c) the same through the K = 4 build,
+   3), so that some are detected; (c) the same through the K = 4 build,
    where some sets overflow; (d) the lanes of (b) on that chunk with one
    loud step, where some lanes stop;
-9. the chunked main path, ``ChunkedCampaign(kernel, chunk=65536)
+9. the chunked main path, ``ChunkedCampaign(kernel, chunk=16384)
    .outcomes_from_keys(...512 keys..., "regfile")``, with K2's launch
    count zeroed just before it: one K2 launch per fast wave, no call of the
    plain version; then batch (a): each of the main path's K2 waves (the
@@ -54,15 +58,16 @@ JAX.  Phases, each fatal:
    padding) against the plain version on its own inputs; gates (i) taint
    = exact engine on 64 keys of ``campaign_key(161)``, (ii) the 512
    outcomes = the serial C++ oracle, (iii) the 64 taint outcomes = the JAX
-   reference's, pinned, (iv) taint = exact at S = 15000 with
+   reference's, pinned, (iv) taint = exact at S = 6000 (C = 6) with
    ``carry_horizon=2``, some lanes carried;
 10. the chunked path's timings (one timed call after a warm-up;
     ``outcomes_from_keys`` and its exact fallback timed in phase 9's
-    counted run): trials/s of ``outcomes_from_keys``, K2 on each of the main path's waves and its
-    plain version (timed once, in (a)), the chunk record, the setup
-    gathers, the exact fallback and the preprocessing; K2's bound over
-    those waves (the function's own need, and the full body from each
-    landing) and each wave's longest walk with its ns per step;
+    counted run): trials/s of ``outcomes_from_keys``, K2 on each of the
+    main path's waves and its plain version (timed once, in (a)), the
+    chunk record, the setup gathers, the exact fallback and the
+    preprocessing; K2's bound over those waves (the function's own need,
+    and the full body from each landing) and each wave's longest walk
+    with its ns per step;
 11. the structure path: the flagship window as a ``TrialKernel`` with
     ``O3Config(shadow_model="fupool")`` (SHREWD's shadow-FU pool under
     the scoreboard's schedule; its availability counters printed); for
@@ -80,7 +85,7 @@ JAX.  Phases, each fatal:
     count zeroed before each: converged, one K1 launch per batch, the
     tallies, strata, trials, batches and interval equal the JAX
     reference's pins; then, untimed, one ``tally_batch`` of 512 fu keys
-    through the ``chunked=`` route on the chunked window at chunk 65536
+    through the ``chunked=`` route on the chunked window at chunk 16384
     (K2's count zeroed before it): one K2 launch per fast wave, no call of
     the plain chunk scan, and the tally equals the C++ oracle's (K2 is
     held against its plain version in phases 8 and 9, not on this route);
@@ -172,14 +177,15 @@ JAX.  Phases, each fatal:
     preprocessing, one K2 launch per fast wave, each held against its
     plain version, 512 outcomes equal to the exact engine's; (d)
     ``python -m shrewd_tpu_torch hostdiff`` on ``sort.c`` (``--mode
-    output --trials 32`` and ``--mode device64 --trials 16``, each with
+    output --trials 16`` and ``--mode device64 --trials 8``, each with
     ``--out``): rc 0 and the one-line JSON, and in the report no
     ``diverged_resolution_failed`` and every escalated trial classified
     by the emulator; host, device and escalation seconds apart, from the
     library's ``run_host`` and ``run_device`` on 8 trials;
     ``run_device`` over 4096 coordinates on the card equal to the CPU's
     lane for lane, with the peak allocated memory; the memmap dense
-    replay's µs per step beside the same window's without the memmap.
+    replay's µs per step beside the same window's without the memmap
+    (one timed call each, no warm-up run).
     No gate holds a lifted window against a tally pinned elsewhere.
 17. a gem5 checkpoint through the port (``sort.c`` built as in phase 16):
     (a) its marker window captured alone, ``snapshot_from_capture`` →
@@ -192,7 +198,7 @@ JAX.  Phases, each fatal:
     last step masked to 32 bits, and ``memchecker.check_trace`` finds
     every load clean; (b) the campaign CLI in-process on a plan with one
     ``CheckpointSpec(binary=…)`` simpoint (regfile and fu, batch 2048,
-    stratified, target 0.01), K1's count zeroed just before it, then on a
+    stratified, target 0.02), K1's count zeroed just before it, then on a
     ``TraceFileSpec`` of the same window under the same name and seed:
     rc 0, equal per-structure trials and outcomes in ``stats.json``,
     every batch on the device tier, K1's launches exactly the batches
@@ -203,11 +209,50 @@ JAX.  Phases, each fatal:
     the CLI's ``trace -n 64 --all`` on the card, byte-equal to
     ``--platform cpu``, then ``trace --pipeline -n 32`` and ``trace
     --workload workloads/sort.c -n 16``: rc 0 and the lines asked for.
+18. the protection search, the thermal network and the scenario matrix:
+    (a) ``DesignSpace`` of 6 seeded structure profiles x 4 schemes (4096
+    configs) on the card against the same space on the CPU: rates within
+    ``rtol=1e-6``, equal assignment and front; a 4-node
+    ``ThermalNetwork`` over 10,000 steps, card against CPU within
+    ``rtol=1e-5``; ``shadow_scheme(kernel, keys=trial_keys(campaign_key(
+    0), 4096))`` on the flagship window under ``shadow_model="fupool"``:
+    K1's count zeroed first, exactly one launch, bitwise equal to its
+    plain version; (b) the matrix ``port10`` through ``python -m
+    shrewd_tpu_torch.tools.scenario --plan m.json --serve
+    --pareto-every 1``, in process: the flagship window at full width,
+    targets regfile, ``mesi:state`` and ``noc:router`` at the plan's
+    coherence defaults, schemes parity (a strict-priority class above)
+    and secded, envelopes tnom and hot (100 °C), batch 2048, stratified,
+    target 0.02, at most 8192 trials, integrity at its defaults — 12
+    cells: rc 0, every cell complete or pruned, in each prune group whose
+    parity cell converged the secded cell pruned by it through a
+    journaled ``revoke`` (at least one), the regfile and MESI thermal
+    mates' raw tallies equal, one completed O3 and one completed
+    coherence cell equal to a solo serial ``Orchestrator`` run on the
+    card, one kernel built for the O3 cells' one window and config, every
+    batch on the device tier and the integrity counters clean, K1's
+    launches exactly the O3 cells' batches plus two per canary run plus
+    one per audited batch, no call of its plain version on card tensors
+    and K1 bitwise equal to it on the first batch, ``metrics.json`` and
+    the Prometheus text read back; the wall seconds, each cell's batches
+    and each family's seconds a batch printed; (c) ``--status`` and
+    ``--pareto`` on that directory: rc 0, the re-emitted artifact equal
+    to (b)'s.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
 port's own samplers, with wrong-path sentinels, pipeline bubbles and the
 FU pool's coverage.
+
+Phases 1-10 run alone in this process, so the kernels line's times
+(phases 6, 9 and 10) are taken with nothing else on the card.  Phases 13
+and 14 + 18 then run in two child processes of this script, one lane
+each (``python3 chip_smoke.py --lane NAME RESULT``: its own launch
+counters, each zeroed before its path as here; the lane's output is
+printed when it ends and its results come back as JSON), beside this
+process's phases 11, 12 and 15.  Phases 16 and 17, which trace binaries
+with ptrace, run alone after the lanes end.  The seconds of phases 11-15
+and 18 are readings taken beside one another.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (K1 ``taint_fast`` and K2 ``taint_chunk``); the last line is
@@ -275,10 +320,14 @@ OPS_FILTER = 4
 OPS_UNTOUCHED = 30
 
 # the chunked path (phases 7-10): bench.py:505-510's window and chunk
-CHUNK_WINDOW = dict(seed=16, n=131072, nphys=256, mem_words=4096,
+# at a quarter of their depth (n 131072, chunk 65536 there)
+CHUNK_WINDOW = dict(seed=16, n=32768, nphys=256, mem_words=4096,
                     working_set_words=1024)
-CHUNK = 65536
-CHUNK_SMALL = 15000             # a second chunking: C = 9, NOP-padded tail
+CHUNK = 16384
+CHUNK_SMALL = 15000             # a second chunking: C = 3, NOP-padded tail
+# gate (iv)'s chunking: at 32768 µops S = 6000 (C = 6, NOP-padded tail)
+# carries 2 gate lanes past a boundary, S = 9000 only 1 (CPU rehearsal)
+CHUNK_HORIZON = 6000
 N_CHUNK_KEYS = 512
 CHUNK_SEED = 163
 GATE_SEED = 161
@@ -286,10 +335,10 @@ N_GATE = 64
 N_CHUNK_MIXED = 2048
 # the JAX reference's taint-engine outcomes (0 masked, 1 sdc, 2 due,
 # 3 detected) for trial_keys(campaign_key(161), 64) on that window at
-# chunk 65536 (shrewd_tpu ChunkedCampaign on CPU;
+# chunk 16384 (shrewd_tpu ChunkedCampaign on CPU;
 # tests/test_torch_chunked.py recomputes it and holds it equal)
-PIN_CHUNKED = ("00000000022200000200000200000000"
-               "00000020000220200020000022000000")
+PIN_CHUNKED = ("00000000002000000000200000000000"
+               "00000020020000000022000020000002")
 
 # the structure path (batch (e), phases 11-12): the flagship window with
 # SHREWD's structural shadow-FU model
@@ -331,8 +380,22 @@ N_CHUNK_FU = 512                # phase 12: the chunked route, fu keys
 INGEST_CHUNK = 1024             # phase 16: the preprocess stage's chunk
 N_HOSTDIFF = 4096               # phase 16 (d): run_device card vs CPU
 N_SPLIT = 8                     # phase 16 (d): host / device / escalation
+# phase 16 (d): the hostdiff CLI's trials in each mode (each escalated
+# trial runs the Python emulator: 32 output trials took 38.6-166.1 s on
+# H100 hosts)
+HOSTDIFF_TRIALS = {"output": 16, "device64": 8}
 CPT_BATCH = 2048                # phase 17 (b): the checkpoint campaign's
-CPT_TARGET = 0.01               # batch and target: a few batches
+CPT_TARGET = 0.02               # batch and target: a batch or two each
+# phase 18: the protection search (6 structures x 4 schemes = 4096
+# configs), the thermal network's steps, shadow_scheme's fu batch, and the
+# scenario matrix's tag, batch, target and trial cap
+SEARCH_STRUCTURES = 6
+THERMAL_STEPS = 10000
+SHADOW_KEYS = 4096
+MATRIX_TAG = "port10"
+MATRIX_BATCH = 2048
+MATRIX_TARGET = 0.02
+MATRIX_MAX_TRIALS = 8192
 # phase 13, the campaign CLI: the JAX reference's results at target 0.005
 # for the same campaign (batch 4096, stratified, fupool; the orchestrator
 # derives its keys as run_until_ci does, so these are run_until_ci's;
@@ -414,6 +477,14 @@ PIN_TIER_CLI = {
                 [32, 0, 0, 0], [11, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0],
                 [0, 0, 0, 0]]),
 }
+
+
+# the phases that run in child processes of this script, one lane each,
+# beside this process's phases 11, 12 and 15; none of them traces a binary
+LANES = {"cli": ("cli_phase",), "tiers": ("tier_phase", "matrix_phase")}
+LANE_PHASES = {"cli": "13", "tiers": "14 and 18"}
+LANE_TIMEOUT_S = 900            # from the lanes' start to their last result
+_lanes: list = []               # (name, Popen) of the lanes started
 
 
 def log(msg: str) -> None:
@@ -831,22 +902,22 @@ def chunked_phases(torch, dev, marks) -> tuple[dict, dict]:
     if got_pin != PIN_CHUNKED:
         fail(f"gate (iii): taint outcomes {got_pin} != JAX reference "
              f"{PIN_CHUNKED}")
-    hz_fast = ChunkedCampaign(kernel, chunk=CHUNK_SMALL, carry_horizon=2,
+    hz_fast = ChunkedCampaign(kernel, chunk=CHUNK_HORIZON, carry_horizon=2,
                               engine="taint")
-    hz_exact = ChunkedCampaign(kernel, chunk=CHUNK_SMALL, carry_horizon=2,
-                               engine="exact")
+    hz_exact = ChunkedCampaign(kernel, chunk=CHUNK_HORIZON,
+                               carry_horizon=2, engine="exact")
     o_hf = hz_fast.outcomes_from_keys(gate_keys, "regfile")
     o_he = hz_exact.outcomes_from_keys(gate_keys, "regfile")
     if not np.array_equal(o_hf, o_he):
-        fail(f"gate (iv): at S={CHUNK_SMALL}, horizon 2 the engines differ "
-             f"on {int((o_hf != o_he).sum())}/{N_GATE} keys")
+        fail(f"gate (iv): at S={CHUNK_HORIZON}, horizon 2 the engines "
+             f"differ on {int((o_hf != o_he).sum())}/{N_GATE} keys")
     if hz_fast.last_stats["carried"] < 1:
-        fail(f"gate (iv): no lane was carried at S={CHUNK_SMALL}")
+        fail(f"gate (iv): no lane was carried at S={CHUNK_HORIZON}")
     if plain_calls[0]:
         fail("the gates called the plain chunk scan")
     log(f"gates: (i) taint == exact on {N_GATE} keys, (ii) "
         f"{N_CHUNK_KEYS} outcomes == C++ oracle, (iii) == JAX pin, (iv) "
-        f"S={CHUNK_SMALL} horizon 2 taint == exact, "
+        f"S={CHUNK_HORIZON} horizon 2 taint == exact, "
         f"{hz_fast.last_stats['carried']} carried")
     marks("9 chunked main path + gates")
 
@@ -1113,7 +1184,7 @@ def structure_phases(torch, dev, marks, kernel, keys, card) -> dict:
     # as phase 9: the exact fallback's waves counted apart and the plain
     # chunk scan counted.  K2 is held against its plain version on the
     # chunked main path's own waves (phase 9) and on mixed kinds (phase 8),
-    # so not again on this route: a plain 65536-step wave takes 65-95 s
+    # so not again on this route: a plain 32768-step wave took 34-36 s
     exact_waves = [0]
     run_exact = camp._outcomes_exact
 
@@ -2419,7 +2490,7 @@ def ingest_phase(torch, marks, card) -> dict:
     # one another came back truncated or with the workload dead in
     # glibc's start-up
     lines, escal, cli_s = {}, {}, {}
-    for mode, n_trials in (("output", 32), ("device64", 16)):
+    for mode, n_trials in HOSTDIFF_TRIALS.items():
         rep_path = os.path.join(d, f"hostdiff_{mode}.json")
         buf = io.StringIO()
         t0 = time.monotonic()
@@ -2485,8 +2556,11 @@ def ingest_phase(torch, marks, card) -> dict:
                        memmap=hd.memmap_from_meta(meta))
     k_plain = TrialKernel(trace, O3Config(enable_shrewd=False),
                           device="cuda")
-    mm_ms = time_ms(torch, lambda: k_mm._replay(faults), 1)
-    plain_replay_ms = time_ms(torch, lambda: k_plain._replay(faults), 1)
+    # one timed call each, no warm-up run (the dense replay has run on
+    # the card in phase 5)
+    mm_ms = time_ms(torch, lambda: k_mm._replay(faults), 1, warm=False)
+    plain_replay_ms = time_ms(torch, lambda: k_plain._replay(faults), 1,
+                              warm=False)
     del k_mm, k_plain, faults
     log(f"(d) run_device over {N_HOSTDIFF} coordinates: card {t_card:.1f} "
         f"s == CPU {t_cpu:.1f} s lane for lane, peak allocated "
@@ -2767,6 +2841,410 @@ def checkpoint_phase(torch, marks, card) -> dict:
             "k1_max_err": max_err}
 
 
+def matrix_doc() -> dict:
+    """Phase 18 (b)'s scenario matrix: the flagship window at full width,
+    regfile plus the coherence tiers at the plan's defaults, parity over
+    secded in a strict-priority class above it, two thermal envelopes."""
+    return {
+        "tag": MATRIX_TAG, "seed": 0,
+        "workloads": [{"name": "flagship", "simpoints": [{
+            "type": "WorkloadSpec", "name": "flagship",
+            "workload": dict(FLAGSHIP)}]}],
+        "targets": ["regfile", "mesi:state", "noc:router"],
+        "schemes": [{"name": "parity", "detect": 1.0, "area": 1.03,
+                     "priority": 1},
+                    {"name": "secded", "correct": 1.0, "area": 1.22}],
+        "thermal": [{"name": "tnom"},
+                    {"name": "hot", "temperature_c": 100.0}],
+        "base": {"batch_size": MATRIX_BATCH, "stratify": True,
+                 "target_halfwidth": MATRIX_TARGET,
+                 "max_trials": MATRIX_MAX_TRIALS},
+        "sdc_target": 0.0, "fit_per_bit": 1e-3}
+
+
+def four_node_network(mod):
+    """Phase 18 (a)'s thermal network: four die blocks in a ring, each
+    tied to ambient (tests/test_torch_thermal.py ``four_node``)."""
+    net = mod.ThermalNetwork(n_nodes=4, ambient_c=45.0, step_s=0.005)
+    for i in range(4):
+        net.resistor(i, (i + 1) % 4, 0.8 + 0.1 * i)
+        net.resistor(i, -1, 2.0 + 0.5 * i)
+        net.capacitor(i, -1, 0.3 + 0.05 * i)
+    return net
+
+
+def matrix_phase(torch, marks, card) -> dict:
+    """Phase 18, the protection search, the thermal network and the
+    scenario matrix on the card → the timings, K1's launches on each
+    path and K1's largest difference from its plain version."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.obs import metrics as obs_metrics
+    from shrewd_tpu_torch.ops import taint_cuda, trial
+    from shrewd_tpu_torch.ops.taint_cuda import taint_fast_cuda
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.parallel import exec_cache
+    from shrewd_tpu_torch.scenario import ScenarioMatrix
+    from shrewd_tpu_torch.search import protect as PS
+    from shrewd_tpu_torch.service import journal as journal_mod
+    from shrewd_tpu_torch.service import scheduler as sched_mod
+    from shrewd_tpu_torch.tools import scenario as scenario_cli
+    from shrewd_tpu_torch.utils import prng
+    from shrewd_tpu_torch.utils import thermal as TH
+
+    timings: dict = {"card": card}
+    launches: dict = {}
+    t_phase = time.monotonic()
+    # instrumentation, as in phase 13: every K1 launch's lane count, the
+    # first launch of each lane count kept, calls of the plain version
+    # on card tensors
+    sizes: list = []
+    kept: dict = {}
+    launch = trial.taint_fast_cuda
+    plain = taint_cuda.taint_fast_plain
+
+    def sized(*a, **kw):
+        got = launch(*a, **kw)
+        n = int(a[3].kind.shape[0])
+        sizes.append(n)
+        if n not in kept:
+            kept[n] = (a, {x: v for x, v in kw.items() if x != "stream"},
+                       got)
+        return got
+
+    plain_cuda = [0]
+
+    def counted_plain(*a, **kw):
+        if a[3].kind.device.type == "cuda":
+            plain_cuda[0] += 1
+        return plain(*a, **kw)
+
+    trial.taint_fast_cuda = sized
+    taint_cuda.taint_fast_plain = counted_plain
+    max_err = 0
+
+    # (a) the protection search, card against CPU: seeded profiles, 6
+    # structures x 4 schemes
+    rng = np.random.default_rng(0)
+    profiles = [PS.StructureProfile.from_tally(
+        f"s{i}", int(rng.integers(64, 20000)), rng.integers(1, 400, 4),
+        fit_per_bit=float(rng.uniform(1e-4, 1e-2)))
+        for i in range(SEARCH_STRUCTURES)]
+    schemes = [PS.NONE, PS.PARITY, PS.SECDED,
+               PS.Scheme("shadow", 0.6, 0.0, 1.5, detect_sdc=0.45,
+                         detect_due=0.7)]
+    t0 = time.monotonic()
+    ds = PS.DesignSpace(profiles, schemes=schemes, device="cuda")
+    res_card = ds.search(1e-3)
+    torch.cuda.synchronize()
+    t_card = time.monotonic() - t0
+    t0 = time.monotonic()
+    ds_cpu = PS.DesignSpace(profiles, schemes=schemes, device="cpu")
+    res_cpu = ds_cpu.search(1e-3)
+    t_cpu = time.monotonic() - t0
+    cfgs = ds.enumerate()
+    rates = [(a.cpu().numpy(), b.numpy()) for a, b in
+             zip(ds.evaluate(cfgs), ds_cpu.evaluate(cfgs))]
+    search_err = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                             1e-30)))
+                     for a, b in rates)
+    if len(cfgs) != 4 ** SEARCH_STRUCTURES or search_err > 1e-6:
+        fail(f"(a) DesignSpace: {len(cfgs)} configs, card rates off the "
+             f"CPU's by rtol {search_err}")
+    if (res_card.feasible, res_card.assignment,
+            [p[2] for p in res_card.pareto]) != (
+            res_cpu.feasible, res_cpu.assignment,
+            [p[2] for p in res_cpu.pareto]):
+        fail("(a) DesignSpace: the card's search differs from the CPU's")
+    log(f"(a) DesignSpace {SEARCH_STRUCTURES} structures x 4 schemes = "
+        f"{len(cfgs)} configs: card == CPU (rates within rtol "
+        f"{search_err:.2e}), front of {len(res_card.pareto)}; search "
+        f"card {t_card:.3f} s, CPU {t_cpu:.3f} s")
+    # the thermal trajectory, card against CPU
+    power = np.random.default_rng(1).uniform(0.0, 6.0, (THERMAL_STEPS, 4))
+    th_card = four_node_network(TH).build(device="cuda")
+    th_card.trajectory(power[:8])              # warm the solver
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    traj = th_card.trajectory(power)
+    torch.cuda.synchronize()
+    t_th_card = time.monotonic() - t0
+    t0 = time.monotonic()
+    traj_cpu = four_node_network(TH).build(device="cpu").trajectory(power)
+    t_th_cpu = time.monotonic() - t0
+    th_err = float((traj.cpu() - traj_cpu).abs().div(
+        traj_cpu.abs()).max())
+    if th_err > 1e-5 or not bool(torch.isfinite(traj).all()):
+        fail(f"(a) thermal: card off the CPU by rtol {th_err}")
+    log(f"(a) thermal 4 nodes x {THERMAL_STEPS} steps: card == CPU within "
+        f"rtol {th_err:.2e}; card {t_th_card:.2f} s "
+        f"({t_th_card / THERMAL_STEPS * 1e6:.1f} µs a step), CPU "
+        f"{t_th_cpu:.2f} s")
+    # shadow_scheme with keys on the flagship window: one unprotected fu
+    # batch through the hybrid path, K1 counted from 0
+    trace = native.generate_trace(**FLAGSHIP)
+    kernel = TrialKernel(trace, O3Config(shadow_model="fupool"),
+                         device="cuda")
+    keys = prng.trial_keys(prng.campaign_key(0), SHADOW_KEYS)
+    sizes.clear()
+    kept.clear()
+    taint_fast_cuda.launches = 0
+    t0 = time.monotonic()
+    scheme = PS.shadow_scheme(kernel, keys=keys)
+    torch.cuda.synchronize()
+    t_shadow = time.monotonic() - t0
+    n_shadow = taint_fast_cuda.launches
+    if n_shadow != 1 or sizes != [SHADOW_KEYS]:
+        fail(f"(a) shadow_scheme: K1 launched {n_shadow} times "
+             f"({sizes}), not once for its {SHADOW_KEYS}-lane batch")
+    args, kw, got = kept[SHADOW_KEYS]
+    max_err = max(max_err, compare(torch, got, plain(*args, **kw),
+                                   "shadow_scheme fu batch"))
+    if not (0.0 < scheme.detect <= 1.0) or scheme.detect_sdc is None:
+        fail(f"(a) shadow_scheme: {scheme}")
+    launches["shadow_scheme fu"] = n_shadow
+    log(f"(a) shadow_scheme(keys={SHADOW_KEYS}) on the flagship window: "
+        f"{scheme}; 1 K1 launch == plain bitwise; {t_shadow:.1f} s")
+    del kernel
+    timings["search"] = {
+        "configs": len(cfgs), "card_s": t_card, "cpu_s": t_cpu,
+        "max_rel_err": search_err}
+    timings["thermal"] = {
+        "nodes": 4, "steps": THERMAL_STEPS, "card_s": t_th_card,
+        "cpu_s": t_th_cpu, "us_per_step_card": t_th_card / THERMAL_STEPS
+        * 1e6, "max_rel_err": th_err}
+    timings["shadow_scheme"] = {"keys": SHADOW_KEYS, "s": t_shadow,
+                                "detect": scheme.detect,
+                                "detect_sdc": scheme.detect_sdc,
+                                "detect_due": scheme.detect_due}
+    marks("18 (a) search, thermal, shadow_scheme")
+
+    # (b) the matrix through the CLI, in process.  Each tenant tick is
+    # timed (CUDA-synchronized) and every journal record is kept.
+    d = tempfile.mkdtemp(prefix="chip_smoke_matrix_")
+    path = os.path.join(d, "m.json")
+    with open(path, "w") as f:
+        json.dump(matrix_doc(), f)
+    outdir = os.path.join(d, "out")
+    tick_s: dict = {}
+    tick_real = sched_mod.CampaignScheduler._tick_tenant
+
+    def timed_tick(self, t):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        tick_real(self, t)
+        torch.cuda.synchronize()
+        tick_s[t.spec.name] = tick_s.get(t.spec.name, 0.0) + (
+            time.monotonic() - t0)
+
+    records: list = []
+    append_real = journal_mod.FleetJournal.append
+
+    def kept_append(self, kind, data=None):
+        records.append((kind, json.loads(json.dumps(data or {}))))
+        return append_real(self, kind, data)
+
+    sched_mod.CampaignScheduler._tick_tenant = timed_tick
+    journal_mod.FleetJournal.append = kept_append
+    exec_cache.clear_kernels()
+    compiled0 = exec_cache.cache().compiled
+    sizes.clear()
+    kept.clear()
+    plain_cuda[0] = 0
+    taint_fast_cuda.launches = 0
+    err = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = scenario_cli.main(["--plan", path, "--serve", "--outdir",
+                                    outdir, "--pareto-every", "1"])
+        torch.cuda.synchronize()
+    finally:
+        sched_mod.CampaignScheduler._tick_tenant = tick_real
+        journal_mod.FleetJournal.append = append_real
+    wall = time.monotonic() - t0
+    n_matrix = taint_fast_cuda.launches
+    matrix_sizes = list(sizes)
+    compiled = exec_cache.cache().compiled - compiled0
+    if rc != 0:
+        fail(f"(b) scenario --serve rc {rc}: {err.getvalue()[-2000:]}")
+    art_path = os.path.join(outdir, f"PARETO_{MATRIX_TAG}.json")
+    art = _read_json(art_path)
+    fleet = _read_json(os.path.join(outdir, "fleet_ckpt", "fleet.json"))
+    tenants = {t["spec"]["name"]: t for t in fleet["tenants"]}
+    if len(tenants) != 12:
+        fail(f"(b) {len(tenants)} tenants, not the 12 cells")
+    statuses = {n: t["status"] for n, t in tenants.items()}
+    if set(statuses.values()) - {"complete", "pruned"}:
+        fail(f"(b) statuses {statuses}")
+    # every prune group whose parity cell converged: its secded mate is
+    # pruned by it through a journaled revoke
+    revokes = {r["tenant"]: r["reason"] for k, r in records
+               if k == "revoke"}
+    pruned = sorted(n for n, s in statuses.items() if s == "pruned")
+    for name, t in tenants.items():
+        if ".parity." not in name or t["status"] != "complete":
+            continue
+        (row,) = t["results"].values()
+        mate = name.replace(".parity.", ".secded.")
+        if row["converged"] and (statuses[mate] != "pruned"
+                                 or revokes.get(mate)
+                                 != f"pareto:{name}"):
+            fail(f"(b) {mate}: {statuses[mate]}, revoke "
+                 f"{revokes.get(mate)!r}, though {name} converged first")
+    if not pruned or set(pruned) != set(revokes):
+        fail(f"(b) pruned {pruned}, journaled revokes {sorted(revokes)}")
+    if sorted(d["cell"] for d in art["decisions"]) != pruned:
+        fail(f"(b) the artifact's decisions {art['decisions']} != the "
+             f"pruned cells {pruned}")
+    # thermal mates' raw tallies: equal but for the NoC cells
+    by_mate: dict = {}
+    for name, t in tenants.items():
+        if t["status"] == "complete":
+            key = name.rsplit(".", 1)[0]
+            by_mate.setdefault(key, []).append(t["results"])
+    for key, rows in by_mate.items():
+        same = all(r == rows[0] for r in rows)
+        if ".noc+router." not in key and len(rows) == 2 and not same:
+            fail(f"(b) {key}: thermal mates' raw tallies differ")
+    # every batch on the device tier, integrity clean; K1's launches
+    o3 = [n for n in tenants if ".regfile." in n]
+    batches = canaries = audits = 0
+    for name in tenants:
+        tdir = os.path.join(outdir, "tenants", name)
+        ckpt = os.path.join(tdir, "campaign_ckpt", "campaign.json")
+        if not os.path.exists(ckpt):
+            continue            # pruned before it was elaborated
+        doc = _read_json(ckpt)
+        stats = _read_json(os.path.join(tdir, "stats.json"))
+        tiers = stats["resilience"]["tier_trials"]
+        ig = stats["integrity"]
+        bad = {k: ig[k] for k in ("canary_failures", "invariant_violations",
+                                  "audit_mismatches", "quarantined_batches")
+               if ig[k]}
+        if tiers["cpu"] or tiers["oracle"] or bad:
+            fail(f"(b) {name}: tier trials {tiers}, integrity {bad}")
+        if name in o3:
+            for st in doc["state"].values():
+                for s in st.values():
+                    batches += s["next_batch"]
+            canaries += doc["integrity"]["canary_runs"]
+            audits += doc["integrity"]["audit_batches"]
+    other = sorted({n for n in matrix_sizes} - {MATRIX_BATCH, 3, 2})
+    want = {MATRIX_BATCH: batches, 3: canaries, 2: canaries}
+    if audits:
+        if len(other) != 1:
+            fail(f"(b) K1 lane counts {sorted(set(matrix_sizes))}")
+        want[other[0]] = audits
+    got_sizes = {n: matrix_sizes.count(n) for n in set(matrix_sizes) |
+                 set(want)}
+    if got_sizes != want or n_matrix != len(matrix_sizes) or not batches:
+        fail(f"(b) K1 launches by lane count {got_sizes} != the O3 cells' "
+             f"batches, canaries and audit samples {want} (counter "
+             f"{n_matrix})")
+    if plain_cuda[0]:
+        fail("(b) K1's plain version ran on card tensors")
+    args, kw, got = kept[MATRIX_BATCH]
+    max_err = max(max_err, compare(torch, got, plain(*args, **kw),
+                                   "matrix regfile batch"))
+    if compiled != 1:
+        fail(f"(b) the kernel registry built {compiled} kernels, not 1 "
+             "for the one window and machine config of the O3 cells")
+    # metrics.json and the Prometheus text read back
+    snap = obs_metrics.read(outdir)
+    with open(os.path.join(outdir, "metrics.prom")) as f:
+        prom = f.read()
+    if snap != _read_json(os.path.join(outdir, "metrics.json")) or \
+            prom != obs_metrics.prometheus_text(snap):
+        fail("(b) metrics.json / metrics.prom do not read back")
+    launches["scenario matrix O3 cells"] = n_matrix
+    marks("18 (b) scenario matrix")
+    # one completed O3 cell and one completed coherence cell against a
+    # solo serial run of the cell's plan on the card
+    cells = {c.name: c for c in
+             ScenarioMatrix.from_dict(matrix_doc()).expand()}
+    solo_s = {}
+    for family in (".regfile.", ".mesi+state."):
+        name = next(n for n in sorted(tenants) if family in n
+                    and tenants[n]["status"] == "complete")
+        t0 = time.monotonic()
+        orch = Orchestrator(CampaignPlan.from_dict(cells[name].plan))
+        list(orch.events())
+        solo_s[name] = time.monotonic() - t0
+        solo = {f"{sp}/{st}": r.tallies.tolist()
+                for (sp, st), r in orch.results.items()}
+        if solo != {k: v["tallies"] for k, v in
+                    tenants[name]["results"].items()}:
+            fail(f"(b) {name}: fleet tallies != its solo serial run")
+    # per-family seconds a batch, from the timed ticks
+    fam: dict = {}
+    for name, t in tenants.items():
+        family = cells[name].target.split(":")[0]
+        f = fam.setdefault(family, {"tenants": 0, "batches": 0, "s": 0.0})
+        f["tenants"] += 1
+        f["batches"] += t["batches"]
+        f["s"] += tick_s.get(name, 0.0)
+    for f in fam.values():
+        f["s_per_batch"] = f["s"] / f["batches"] if f["batches"] else None
+    counts = {x: list(statuses.values()).count(x)
+              for x in set(statuses.values())}
+    log(f"(b) matrix {MATRIX_TAG!r}: rc 0, 12 cells {counts}, "
+        f"pruned {pruned} by journaled revokes; regfile and mesi thermal "
+        f"mates equal; one kernel built; K1 {n_matrix} launches == "
+        f"{batches} batches + 2 x {canaries} canary runs + {audits} audit "
+        f"samples, == plain on the first batch; solo runs equal "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in solo_s.items())}); "
+        f"wall {wall:.1f} s; per family {fam} ({card})")
+    # (c) --status and --pareto on that directory
+    status = json.loads(_cli_stdout(scenario_cli.main,
+                                    ["--status", outdir]))
+    if status["tag"] != MATRIX_TAG or set(status["tenants"]) != set(
+            tenants):
+        fail(f"(c) --status: {status}")
+    before = _read_json(art_path)
+    _cli_stdout(scenario_cli.main, ["--pareto", outdir])
+    again = _read_json(art_path)
+    before["fleet"].pop("ticks"), again["fleet"].pop("ticks")
+    if again != before:
+        fail("(c) --pareto re-emitted another artifact than (b)'s")
+    log("(c) --status and --pareto: rc 0, the re-emitted artifact == (b)'s")
+    trial.taint_fast_cuda = launch
+    taint_cuda.taint_fast_plain = plain
+    shutil.rmtree(d, ignore_errors=True)
+    timings["matrix"] = {
+        "wall_s": wall, "tenants": 12, "statuses": statuses,
+        "pruned": pruned, "batches": {n: t["batches"]
+                                      for n, t in tenants.items()},
+        "families": fam, "k1_launches": n_matrix, "o3_batches": batches,
+        "canary_runs": canaries, "audit_batches": audits,
+        "kernels_built": compiled, "solo_s": solo_s}
+    timings["matrix_phase_s"] = time.monotonic() - t_phase
+    marks("18 (c) status + pareto")
+    return {"timings": timings, "launches": launches, "k1_max_err": max_err}
+
+
+def _cli_stdout(main, argv) -> str:
+    """Run one of the port's CLI ``main``s in-process; rc 0 or fail; its
+    standard output."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        fail(f"{argv}: rc {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
 def escalations(rep: dict, what: str) -> dict:
     """A hostdiff report's emulator escalations; fails when the emulator
     could not run (``run_device`` then labels every escalated trial SDC)
@@ -2782,6 +3260,130 @@ def escalations(rep: dict, what: str) -> dict:
             "resync_severed": rep["resync_severed"],
             "escalated_total": rep["escalated_total"],
             "diverged_resolved": resolved}
+
+
+def start_lanes() -> str:
+    """Start one child process of this script for each lane of ``LANES``
+    → the directory that takes their output and results.  Each child is
+    the leader of a process group of its own, which ``stop_lanes`` kills
+    whole."""
+    import atexit
+    import os
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_lanes_")
+    atexit.register(stop_lanes)
+    for name in LANES:
+        base = os.path.join(d, name)
+        with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+            _lanes.append((name, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--lane", name,
+                 base + ".json"], stdout=out, stderr=err,
+                start_new_session=True)))
+    return d
+
+
+def stop_lanes() -> None:
+    """Kill every lane's process group (a lane that failed may leave
+    processes it started) and reap the lanes."""
+    import os
+    import signal
+
+    for _, proc in _lanes:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        proc.wait()
+
+
+def join_lanes(d: str, t_start: float) -> dict:
+    """Wait for every lane, print its output and fail if it failed → the
+    results of its phases by function name, and each lane's seconds."""
+    import os
+    import shutil
+
+    results: dict = {"lane_s": {}}
+    for name, proc in _lanes:
+        left = t_start + LANE_TIMEOUT_S - time.monotonic()
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        base = os.path.join(d, name)
+        log(f"lane {name} (phase {LANE_PHASES[name]}), run in a child "
+            "process beside phases 11, 12 and 15:")
+        with open(base + ".out") as f:
+            sys.stdout.write(f.read())
+        with open(base + ".err") as f:
+            sys.stderr.write(f.read())
+        sys.stdout.flush()
+        sys.stderr.flush()
+        if rc is None:
+            stop_lanes()
+            fail(f"lane {name} still running {LANE_TIMEOUT_S} s after the "
+                 "lanes started")
+        if rc != 0:
+            fail(f"lane {name} (phase {LANE_PHASES[name]}) exited rc {rc}")
+        doc = _read_json(base + ".json")
+        results.update(doc["phases"])
+        results["lane_s"][name] = doc["wall_s"]
+    stop_lanes()
+    shutil.rmtree(d, ignore_errors=True)
+    return results
+
+
+def lane_main(name: str, result: str) -> int:
+    """``--lane NAME RESULT``: run one lane's phases in order in this child
+    process and write their results to RESULT as JSON.  The parent built
+    the kernel and the oracle first, so the builds here find them."""
+    import os
+    import signal
+    import threading
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.ops import taint_cuda
+
+    parent = os.getppid()
+
+    def orphaned() -> None:
+        # the parent is gone (killed at its time limit): take this lane's
+        # process group with it
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    # the lanes' CPU kernels are small step loops: one intra-op thread
+    # each, so that three processes' thread pools do not spin against
+    # one another
+    torch.set_num_threads(1)
+    t0 = time.monotonic()
+    taint_cuda.build()
+    native.build()
+    card = card_line()
+    t_mark = [t0]
+
+    def marks(phase: str) -> None:
+        now = time.monotonic()
+        log(f"phase {phase}: {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
+    phases = {}
+    for fn in LANES[name]:
+        t_mark[0] = time.monotonic()
+        phases[fn] = globals()[fn](torch, marks, card)
+    tmp = f"{result}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"phases": phases, "wall_s": time.monotonic() - t0}, f)
+    os.replace(tmp, result)
+    return 0
 
 
 def main() -> int:
@@ -2991,8 +3593,10 @@ def main() -> int:
     # the row pass and the dense re-run: no warm-up run for these three
     plain_ms = time_ms(torch, lambda: taint_fast_plain(*args, **kw), 1,
                        warm=False)
+    # record_golden: one timed call (phase 3 recorded this window)
     rec_ms = time_ms(torch, lambda: record_golden(
-        kernel.tr, kernel.init_reg, kernel.init_mem, True, True))
+        kernel.tr, kernel.init_reg, kernel.init_mem, True, True), 1,
+        warm=False)
     esc = got.escaped.cpu().numpy()
     ovf = got.overflow.cpu().numpy()
     row_idx = np.nonzero(esc & ~ovf)[0]
@@ -3055,14 +3659,24 @@ def main() -> int:
     marks("6 timings")
     chunk_timings, k2_record = chunked_phases(torch, dev, marks)
     log(json.dumps({"timings": {"card": card, **chunk_timings}}))
+    # phases 13 and 14 + 18 in their lanes, beside phases 11, 12 and 15
+    t_lanes = time.monotonic()
+    lanes_dir = start_lanes()
     paths = structure_phases(torch, dev, marks, kernel_s, keys, card)
     log(json.dumps({"timings": paths["timings"]}))
     del kernel_s
-    cli_run = cli_phase(torch, marks, card)
-    log(json.dumps({"timings": cli_run["timings"]}))
-    log(json.dumps({"timings": tier_phase(torch, marks, card)}))
     mesh_run = mesh_phase(torch, marks, card)
     log(json.dumps({"timings": mesh_run["timings"]}))
+    lanes = join_lanes(lanes_dir, t_lanes)
+    cli_run, matrix_run = lanes["cli_phase"], lanes["matrix_phase"]
+    log(json.dumps({"timings": cli_run["timings"]}))
+    log(json.dumps({"timings": lanes["tier_phase"]}))
+    log(json.dumps({"timings": matrix_run["timings"]}))
+    log(f"phases 11-15 and 18 in three processes: "
+        f"{time.monotonic() - t_lanes:.1f} s (lanes "
+        + ", ".join(f"{n} {s:.1f} s" for n, s in lanes["lane_s"].items())
+        + ")")
+    t_mark[0] = time.monotonic()
     ingest_run = ingest_phase(torch, marks, card)
     log(json.dumps({"timings": ingest_run["timings"]}))
     ckpt_run = checkpoint_phase(torch, marks, card)
@@ -3071,6 +3685,7 @@ def main() -> int:
     paths["launches"].update(mesh_run["launches"])
     paths["launches"].update(ingest_run["launches"])
     paths["launches"].update(ckpt_run["launches"])
+    paths["launches"].update(matrix_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
@@ -3078,7 +3693,7 @@ def main() -> int:
         p: n for p, n in paths["launches"].items() if "chunked" in p}}
     max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"],
                   mesh_run["k1_max_err"], ingest_run["k1_max_err"],
-                  ckpt_run["k1_max_err"])
+                  ckpt_run["k1_max_err"], matrix_run["k1_max_err"])
     k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),
@@ -3102,4 +3717,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--lane":
+        sys.exit(lane_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -5,11 +5,15 @@ the input of a run: a trace window, a machine config, the per-trial PRNG
 keys and fault coordinates.  Each function here takes them as the reference
 hands them out, as numpy arrays (``np.asarray`` of jax arrays) or plain
 dicts, and builds the port's object; the chunked path's window and carried
-deviation sets also go back, as numpy arrays the reference takes.  Nothing
+deviation sets also go back, as numpy arrays the reference takes.  The
+fleet's documents (tenant specs, scenario matrices) pass as JSON, and the
+protection search's schemes and profiles through their fields.  Nothing
 here imports the reference.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -132,3 +136,42 @@ def sets_to_arrays(tags: torch.Tensor, vals: torch.Tensor
     uint32 values."""
     return (tags.cpu().numpy().astype(np.int32),
             vals.cpu().numpy().astype(np.uint32))
+
+
+def tenant_spec_from_dict(doc: dict):
+    """A reference ``TenantSpec.to_dict()`` (or its JSON) → the port's
+    ``TenantSpec``: the document is the same in both packages."""
+    from shrewd_tpu_torch.service.queue import TenantSpec
+
+    return TenantSpec.from_dict(json.loads(json.dumps(doc)))
+
+
+def matrix_from_dict(doc: dict):
+    """A reference ``ScenarioMatrix.to_dict()`` (or its JSON) → the
+    port's ``ScenarioMatrix``."""
+    from shrewd_tpu_torch.scenario.matrix import ScenarioMatrix
+
+    return ScenarioMatrix.from_dict(json.loads(json.dumps(doc)))
+
+
+def scheme_from_fields(name, detect, correct, area, detect_sdc=None,
+                       detect_due=None):
+    """A reference ``Scheme``'s fields, in order (``*scheme``) → the
+    port's ``Scheme``."""
+    from shrewd_tpu_torch.search.protect import Scheme
+
+    def opt(x):
+        return None if x is None else float(x)
+    return Scheme(str(name), float(detect), float(correct), float(area),
+                  detect_sdc=opt(detect_sdc), detect_due=opt(detect_due))
+
+
+def profile_from_fields(name, bits, probs, fit_per_bit=1.0e-3,
+                        halfwidth=0.0):
+    """A reference ``StructureProfile``'s fields, in order
+    (``*profile``) → the port's, its probabilities as float64 numpy."""
+    from shrewd_tpu_torch.search.protect import StructureProfile
+
+    return StructureProfile(str(name), int(bits),
+                            np.asarray(probs, dtype=np.float64),
+                            float(fit_per_bit), float(halfwidth))

@@ -55,6 +55,12 @@ class KernelLedger:
         return self.key_stats.setdefault(
             key_digest(key), {"hits": 0, "misses": 0, "evictions": 0})
 
+    def stats(self) -> dict:
+        """The counters as the reference's ``ExecutableCache.stats()``
+        names them (the fleet metrics and stats read this)."""
+        return {"compiled": self.compiled, "reused": self.reused,
+                "evicted": self.evicted, "refused": self.refused}
+
     def per_key_stats(self) -> dict:
         """Per-kernel-key hit/miss/evict counters keyed by the short key
         digest (``campaign.perf.exec_cache_keys``)."""

@@ -315,7 +315,8 @@ def _chip_smoke():
 
 def test_chunked_pin_for_chip_smoke():
     """chip_smoke.py holds the taint engine's outcomes of 64 keys on its
-    131072-µop window against a constant: they must be the reference's."""
+    chunked window (``CHUNK_WINDOW``) against a constant: they must be
+    the reference's."""
     smoke = _chip_smoke()
     t = ref_native.generate_trace(**smoke.CHUNK_WINDOW)
     rk = ref_prng.trial_keys(ref_prng.campaign_key(smoke.GATE_SEED),

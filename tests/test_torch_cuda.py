@@ -1214,3 +1214,93 @@ def test_check_trace_clean_on_the_cards_golden_record(cuda,
                                   want.astype(np.int64))
     r = check_trace(trace, golden_record=kernel.golden_rec)
     assert r.n_violations == 0 and r.n_loads > 0, r.detail
+
+
+# --- the protection search, the thermal network and the fleet --------------
+
+def test_design_space_on_card_equals_cpu(cuda):
+    """Seeded profiles, 6 structures × 4 schemes: the card's rates equal
+    the CPU's (the same float32 products and left-to-right sums), and
+    ``search`` gives the same assignment and front."""
+    from shrewd_tpu_torch.search import protect as PS
+
+    rng = np.random.default_rng(0)
+    profiles = [PS.StructureProfile.from_tally(
+        f"s{i}", int(rng.integers(64, 20000)), rng.integers(1, 400, 4),
+        fit_per_bit=float(rng.uniform(1e-4, 1e-2))) for i in range(6)]
+    schemes = [PS.NONE, PS.PARITY, PS.SECDED,
+               PS.Scheme("shadow", 0.6, 0.0, 1.5, detect_sdc=0.45)]
+    card = PS.DesignSpace(profiles, schemes=schemes, device=cuda)
+    cpu = PS.DesignSpace(profiles, schemes=schemes, device="cpu")
+    cfgs = cpu.enumerate()
+    for a, b in zip(card.evaluate(cfgs), cpu.evaluate(cfgs)):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-6)
+    for target in (0.0, 1e-3):
+        x, y = card.search(target), cpu.search(target)
+        assert (x.feasible, x.assignment) == (y.feasible, y.assignment)
+        assert [p[2] for p in x.pareto] == [p[2] for p in y.pareto]
+
+
+def test_thermal_trajectory_on_card_equals_cpu(cuda):
+    """A 4-node network over 2000 steps: the card's trajectory equals
+    the CPU's within float32 LU (rtol 1e-5)."""
+    from shrewd_tpu_torch.utils.thermal import ThermalNetwork
+
+    def net():
+        n = ThermalNetwork(n_nodes=4, ambient_c=45.0, step_s=0.005)
+        for i in range(4):
+            n.resistor(i, (i + 1) % 4, 0.8 + 0.1 * i)
+            n.resistor(i, -1, 2.0 + 0.5 * i)
+            n.capacitor(i, -1, 0.3 + 0.05 * i)
+        return n
+
+    power = np.random.default_rng(0).uniform(0.0, 6.0, (2000, 4))
+    card = net().build(device=cuda).trajectory(power)
+    cpu = net().build(device="cpu").trajectory(power)
+    assert card.device.type == "cuda"
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-5)
+
+
+def test_two_tenant_fleet_on_card_equals_solo_runs(cuda, tmp_path):
+    """Two tenants on the card's mesh under ``fair``: each tenant's
+    tallies equal its solo serial run on the card and the same fleet on
+    the CPU; K1 launched, its plain version never called on the card."""
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.parallel.mesh import make_mesh
+    from shrewd_tpu_torch.service import CampaignScheduler, TenantSpec
+
+    plans = {"a": _tiny_plan("serial", False),
+             "b": _tiny_plan("sync", True)}
+    plans["b"].seed = 5
+    plain_calls = []
+    orig = taint_cuda.taint_fast_plain
+
+    def counted(*a, **kw):
+        plain_calls.append(a[3].kind.device.type)
+        return orig(*a, **kw)
+
+    taint_cuda.taint_fast_plain = counted
+    try:
+        out = {}
+        for dev in (cuda, "cpu"):
+            before = taint_fast_cuda.launches
+            sched = CampaignScheduler(outdir=str(tmp_path / str(dev)),
+                                      mesh=make_mesh([dev]))
+            for n, p in plans.items():
+                sched.admit(TenantSpec(name=n, plan=p.to_dict()))
+            assert sched.run() == 0
+            out[str(dev)] = {n: {k: v.tolist() for k, v in
+                                 sched.tenant_tallies(n).items()}
+                             for n in plans}
+            if dev is cuda:
+                assert taint_fast_cuda.launches > before
+        for n, p in plans.items():
+            orch = Orchestrator(p, device=cuda)
+            list(orch.events())
+            assert out["cuda"][n] == {k: r.tallies.tolist()
+                                      for k, r in orch.results.items()}
+    finally:
+        taint_cuda.taint_fast_plain = orig
+    assert "cuda" not in plain_calls
+    assert out["cuda"] == out["cpu"]

@@ -12,7 +12,11 @@ restored, a ``CheckpointSpec`` campaign through the ``Simulator``, its
 record) and the CLI's ``trace``, and, where the host toolchain is
 present, the ingest of a workload binary (``IngestPipeline.run`` with its
 preprocess stage), ``hostdiff.run_device`` with and without escalation
-and the lifted restore of a captured window, on the CPU."""
+and the lifted restore of a captured window, on the CPU, and the fleet
+and scenario CLIs (``tools.fleet --plans`` and ``tools.scenario --serve``
+and ``--status`` with ``--platform cpu``), the protection search and the
+thermal network.  The fleet's mesh, ``DesignSpace`` and the thermal
+factorization default to the card too."""
 
 import os
 import shutil
@@ -196,6 +200,47 @@ if all(shutil.which(x) for x in ("gcc", "g++", "objdump", "nm")):
             cpt.load_arch_snapshot(os.path.join(d, "sort_cpt")),
             str(paths.workload), max_steps=200)
         assert meta["emu_steps"] == 200 and lt.n > 0, meta
+from shrewd_tpu_torch.search import DesignSpace, StructureProfile
+from shrewd_tpu_torch.utils.thermal import ThermalNetwork
+from shrewd_tpu_torch.tools import fleet as fleet_cli
+from shrewd_tpu_torch.tools import scenario as scenario_cli
+ds = DesignSpace([StructureProfile.from_tally("a", 64, [5, 3, 2, 0]),
+                  StructureProfile.from_tally("b", 32, [7, 1, 2, 0])],
+                 device="cpu")
+assert ds.search(0.0).feasible
+th = ThermalNetwork(n_nodes=1).resistor(0, -1, 2.0).capacitor(0, -1, 5.0)
+assert th.build(device="cpu").trajectory(np.ones((8, 1))).shape == (8, 1)
+tiny = {"type": "WorkloadSpec", "name": "w0", "workload": {
+    "n": 96, "nphys": 32, "mem_words": 64, "working_set_words": 32,
+    "seed": 7}}
+small = {"structures": ["regfile"], "batch_size": 32, "max_trials": 64,
+         "min_trials": 64, "target_halfwidth": 0.2, "simpoints": [tiny],
+         "integrity": {"canary_trials": 0, "audit_rate": 0.0},
+         "coherence_accesses": 48, "coherence_mem_words": 64}
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stderr(io.StringIO()), \
+        contextlib.redirect_stdout(io.StringIO()):
+    json.dump(small, open(os.path.join(d, "p.json"), "w"))
+    assert fleet_cli.main(["--plans", os.path.join(d, "p.json"),
+                           os.path.join(d, "p.json"), "--outdir",
+                           os.path.join(d, "fleet"), "--platform",
+                           "cpu"]) == 0
+    json.dump({"tag": "t", "workloads": [{"name": "wl",
+                                          "simpoints": [tiny]}],
+               "targets": ["regfile", "mesi:state"],
+               "schemes": [{"name": "parity", "detect": 1.0,
+                            "area": 1.03, "priority": 1},
+                           {"name": "secded", "correct": 1.0,
+                            "area": 1.22}],
+               "base": {k: v for k, v in small.items()
+                        if k != "simpoints"}},
+              open(os.path.join(d, "m.json"), "w"))
+    assert scenario_cli.main(["--plan", os.path.join(d, "m.json"),
+                              "--serve", "--outdir",
+                              os.path.join(d, "m"), "--platform",
+                              "cpu", "--pareto-every", "1"]) == 0
+    assert scenario_cli.main(["--status", os.path.join(d, "m")]) == 0
+    assert os.path.exists(os.path.join(d, "m", "PARETO_t.json"))
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded
@@ -228,14 +273,35 @@ def test_trial_kernel_defaults_to_the_card():
     assert TrialKernel(t, device="cpu").device.type == "cpu"
 
 
+def _design_space():
+    from shrewd_tpu_torch.search import DesignSpace, StructureProfile
+
+    return DesignSpace([StructureProfile.from_tally("a", 8, [1, 1, 0, 0])])
+
+
+def _thermal():
+    from shrewd_tpu_torch.utils.thermal import ThermalNetwork
+
+    return ThermalNetwork(n_nodes=1).resistor(0, -1, 2.0).build()
+
+
+def _fleet_mesh():
+    from shrewd_tpu_torch.service import CampaignScheduler
+
+    return CampaignScheduler().mesh
+
+
 @pytest.mark.parametrize("make", [
     lambda: prng.campaign_key(0),
     lambda: prng.threefry_seed(7),
     lambda: prng.trial_key(0, 1, 2, 3, 4),
     lambda: compat.keys_from_key_data(np.zeros((4, 2), np.uint32)),
     lambda: compat.fault_from_arrays(*([np.zeros(4)] * 5)),
+    lambda: _design_space().device,
+    lambda: _thermal().G,
+    lambda: _fleet_mesh().devices[0],
 ], ids=["campaign_key", "threefry_seed", "trial_key", "keys_from_key_data",
-        "fault_from_arrays"])
+        "fault_from_arrays", "design_space", "thermal", "fleet_mesh"])
 def test_keys_and_inputs_default_to_the_card(make):
     if torch.cuda.is_available():
         assert make().device.type == "cuda"
