@@ -237,7 +237,35 @@ JAX.  Phases, each fatal:
     the Prometheus text read back; the wall seconds, each cell's batches
     and each family's seconds a batch printed; (c) ``--status`` and
     ``--pareto`` on that directory: rc 0, the re-emitted artifact equal
-    to (b)'s.
+    to (b)'s;
+19. the federation on the card, K1's counts zeroed before each part and
+    its batch-sized launch held bitwise against its plain version in
+    each (the sweep's 96-µop launches of every lane count): (a)
+    ``python -m shrewd_tpu_torch.tools.federation --plans`` in a child
+    process (``python3 chip_smoke.py --fed-cli RESULT ARGS…``, which runs
+    the module through ``runpy`` as ``python -m`` does, under K1's
+    counters), 3 pods, three tenants of the flagship window at full
+    width (regfile, fu, lsq, plan seeds 3, 5, 7, batch 2048, stratified,
+    target 0.02, 4096-8192 trials, integrity at its defaults), the HTTP
+    front on ``127.0.0.1``, a lease that expires after one silent round,
+    ``kill_pod`` on pod2 at its tick 1 and ``partition_pod`` on pod0
+    for 2 rounds: rc 0, both faults injected and survived, pod2 alone
+    dead, failovers >= 1, fenced >= 1, one journaled ``done`` record per
+    tenant, each tenant's tallies equal to a solo ``Orchestrator`` run of
+    its plan on the card (run here meanwhile), every trial on the device
+    tier with integrity clean, the card's allocated bytes around the
+    kill printed, then ``--status`` rc 0; (b) the regfile plan run to 3
+    batches as 3 stripes on 3 pods under ``kill_shard``: the merged
+    tallies equal to the same plan unsharded on one pod, the busy-time
+    ratio printed as a reading (the pods share one card); (c) the
+    ``port10`` matrix through ``FederatedScenarioRunner`` on a 2-pod
+    floor with an ``Autoscaler``: rc 0, the pool back at its floor, its
+    scale-ups, retires and rounds printed, and its front (without the
+    ``cells`` provenance) bitwise equal to phase 18's, compared in
+    ``main`` once the lanes end; (d) ``run_gateway_crashcheck`` over
+    ``small_fleet_plans(seeds=(3, 5))``, the two-phase placement's 4
+    ``route``/``place`` points each with its torn tail: ``ok``, 0
+    divergent recoveries.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -246,13 +274,13 @@ FU pool's coverage.
 
 Phases 1-10 run alone in this process, so the kernels line's times
 (phases 6, 9 and 10) are taken with nothing else on the card.  Phases 13
-and 14 + 18 then run in two child processes of this script, one lane
-each (``python3 chip_smoke.py --lane NAME RESULT``: its own launch
+and 14 + 18 and 19 then run in three child processes of this script, one
+lane each (``python3 chip_smoke.py --lane NAME RESULT``: its own launch
 counters, each zeroed before its path as here; the lane's output is
 printed when it ends and its results come back as JSON), beside this
 process's phases 11, 12 and 15.  Phases 16 and 17, which trace binaries
-with ptrace, run alone after the lanes end.  The seconds of phases 11-15
-and 18 are readings taken beside one another.
+with ptrace, run alone after the lanes end.  The seconds of phases 11-15,
+18 and 19 are readings taken beside one another.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (K1 ``taint_fast`` and K2 ``taint_chunk``); the last line is
@@ -481,8 +509,30 @@ PIN_TIER_CLI = {
 
 # the phases that run in child processes of this script, one lane each,
 # beside this process's phases 11, 12 and 15; none of them traces a binary
-LANES = {"cli": ("cli_phase",), "tiers": ("tier_phase", "matrix_phase")}
-LANE_PHASES = {"cli": "13", "tiers": "14 and 18"}
+# phase 19: the federation.  (a) three tenants of the flagship window at
+# full width through the federation CLI on 3 pods; two batches a tenant
+# (min_trials), so that the partitioned pod still runs a tenant when it
+# heals and is fenced; the lease expires after one silent round
+FED_TENANTS = (("regfile", 3), ("fu", 5), ("lsq", 7))
+FED_PODS = 3
+FED_MIN_TRIALS = 4096
+FED_EXPIRY = 1
+FED_CHAOS = {"faults": [
+    {"kind": "kill_pod", "pod": "pod2", "at_tick": 1},
+    {"kind": "partition_pod", "pod": "pod0", "at_round": 3, "rounds": 2}]}
+# (b) one regfile campaign run to 3 batches, one stripe a pod
+FED_SHARDS = 3
+FED_SHARD_TRIALS = 3 * MATRIX_BATCH
+FED_SHARD_CHAOS = {"faults": [
+    {"kind": "kill_shard", "shard": "camp+shard1", "at_round": 2}]}
+# (c) the port10 matrix on a 2-pod floor; (d) the gateway sweep's points
+FED_AUTOSCALE = dict(min_pods=2, max_pods=3, up_trials=16384.0,
+                     down_trials=2048.0, cooldown_rounds=1)
+FED_SWEEP_POINTS = 4
+
+LANES = {"cli": ("cli_phase",), "tiers": ("tier_phase", "matrix_phase"),
+         "fed": ("fed_phase",)}
+LANE_PHASES = {"cli": "13", "tiers": "14 and 18", "fed": "19"}
 LANE_TIMEOUT_S = 900            # from the lanes' start to their last result
 _lanes: list = []               # (name, Popen) of the lanes started
 
@@ -2888,7 +2938,6 @@ def matrix_phase(torch, marks, card) -> dict:
     from shrewd_tpu_torch.campaign.plan import CampaignPlan
     from shrewd_tpu_torch.models.o3 import O3Config
     from shrewd_tpu_torch.obs import metrics as obs_metrics
-    from shrewd_tpu_torch.ops import taint_cuda, trial
     from shrewd_tpu_torch.ops.taint_cuda import taint_fast_cuda
     from shrewd_tpu_torch.ops.trial import TrialKernel
     from shrewd_tpu_torch.parallel import exec_cache
@@ -2906,29 +2955,8 @@ def matrix_phase(torch, marks, card) -> dict:
     # instrumentation, as in phase 13: every K1 launch's lane count, the
     # first launch of each lane count kept, calls of the plain version
     # on card tensors
-    sizes: list = []
-    kept: dict = {}
-    launch = trial.taint_fast_cuda
-    plain = taint_cuda.taint_fast_plain
-
-    def sized(*a, **kw):
-        got = launch(*a, **kw)
-        n = int(a[3].kind.shape[0])
-        sizes.append(n)
-        if n not in kept:
-            kept[n] = (a, {x: v for x, v in kw.items() if x != "stream"},
-                       got)
-        return got
-
-    plain_cuda = [0]
-
-    def counted_plain(*a, **kw):
-        if a[3].kind.device.type == "cuda":
-            plain_cuda[0] += 1
-        return plain(*a, **kw)
-
-    trial.taint_fast_cuda = sized
-    taint_cuda.taint_fast_plain = counted_plain
+    probe = K1Probe(torch)
+    sizes, kept, plain = probe.sizes, probe.kept, probe.plain
     max_err = 0
 
     # (a) the protection search, card against CPU: seeded profiles, 6
@@ -2994,9 +3022,7 @@ def matrix_phase(torch, marks, card) -> dict:
     kernel = TrialKernel(trace, O3Config(shadow_model="fupool"),
                          device="cuda")
     keys = prng.trial_keys(prng.campaign_key(0), SHADOW_KEYS)
-    sizes.clear()
-    kept.clear()
-    taint_fast_cuda.launches = 0
+    probe.reset()
     t0 = time.monotonic()
     scheme = PS.shadow_scheme(kernel, keys=keys)
     torch.cuda.synchronize()
@@ -3056,10 +3082,7 @@ def matrix_phase(torch, marks, card) -> dict:
     journal_mod.FleetJournal.append = kept_append
     exec_cache.clear_kernels()
     compiled0 = exec_cache.cache().compiled
-    sizes.clear()
-    kept.clear()
-    plain_cuda[0] = 0
-    taint_fast_cuda.launches = 0
+    probe.reset()
     err = io.StringIO()
     t0 = time.monotonic()
     try:
@@ -3150,7 +3173,7 @@ def matrix_phase(torch, marks, card) -> dict:
         fail(f"(b) K1 launches by lane count {got_sizes} != the O3 cells' "
              f"batches, canaries and audit samples {want} (counter "
              f"{n_matrix})")
-    if plain_cuda[0]:
+    if probe.plain_cuda:
         fail("(b) K1's plain version ran on card tensors")
     args, kw, got = kept[MATRIX_BATCH]
     max_err = max(max_err, compare(torch, got, plain(*args, **kw),
@@ -3216,8 +3239,7 @@ def matrix_phase(torch, marks, card) -> dict:
     if again != before:
         fail("(c) --pareto re-emitted another artifact than (b)'s")
     log("(c) --status and --pareto: rc 0, the re-emitted artifact == (b)'s")
-    trial.taint_fast_cuda = launch
-    taint_cuda.taint_fast_plain = plain
+    probe.close()
     shutil.rmtree(d, ignore_errors=True)
     timings["matrix"] = {
         "wall_s": wall, "tenants": 12, "statuses": statuses,
@@ -3228,7 +3250,466 @@ def matrix_phase(torch, marks, card) -> dict:
         "kernels_built": compiled, "solo_s": solo_s}
     timings["matrix_phase_s"] = time.monotonic() - t_phase
     marks("18 (c) status + pareto")
-    return {"timings": timings, "launches": launches, "k1_max_err": max_err}
+    return {"timings": timings, "launches": launches, "k1_max_err": max_err,
+            "front": pareto_front(before)}
+
+
+def pareto_front(art: dict) -> dict:
+    """A ``PARETO_<tag>.json``'s design search without each group's
+    ``cells`` key: which scheme-mate supplied a profile is provenance that
+    may differ between schedules, everything the front decides on may
+    not."""
+    return {g: {k: v for k, v in r.items() if k != "cells"}
+            for g, r in art["search"].items()}
+
+
+def fed_plan(structure: str, seed: int, **kw) -> dict:
+    """A phase 19 tenant's plan: the flagship window at full width, batch
+    2048, stratified, target 0.02, at most 8192 trials, integrity at its
+    defaults."""
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan
+
+    doc = {"simpoints": [{"type": "WorkloadSpec", "name": "flagship",
+                          "workload": dict(FLAGSHIP)}],
+           "structures": [structure], "seed": seed,
+           "batch_size": MATRIX_BATCH, "stratify": True,
+           "target_halfwidth": MATRIX_TARGET,
+           "max_trials": MATRIX_MAX_TRIALS, **kw}
+    return CampaignPlan.from_dict(doc).to_dict()
+
+
+class K1Probe:
+    """K1's instrumentation in phases 18 and 19: every launch's lane
+    count, the first launch of each lane count kept for the comparison
+    with the plain version, and calls of the plain version on card
+    tensors.  ``reset`` zeroes the counts before a path."""
+
+    def __init__(self, torch):
+        from shrewd_tpu_torch.ops import taint_cuda, trial
+
+        self.torch = torch
+        self.trial, self.taint_cuda = trial, taint_cuda
+        self.launch = trial.taint_fast_cuda
+        self.plain = taint_cuda.taint_fast_plain
+        self.sizes: list = []
+        self.kept: dict = {}
+        self.plain_cuda = 0
+
+        def sized(*a, **kw):
+            got = self.launch(*a, **kw)
+            n = int(a[3].kind.shape[0])
+            self.sizes.append(n)
+            if n not in self.kept:
+                self.kept[n] = (a, {x: v for x, v in kw.items()
+                                    if x != "stream"}, got)
+            return got
+
+        def counted_plain(*a, **kw):
+            if a[3].kind.device.type == "cuda":
+                self.plain_cuda += 1
+            return self.plain(*a, **kw)
+
+        trial.taint_fast_cuda = sized
+        taint_cuda.taint_fast_plain = counted_plain
+
+    def reset(self) -> None:
+        self.sizes.clear()
+        self.kept.clear()
+        self.plain_cuda = 0
+        self.taint_cuda.taint_fast_cuda.launches = 0
+
+    def read(self, what: str, only=None) -> tuple[int, int]:
+        """→ (launches since ``reset``, the largest difference of the
+        first launch of each lane count (of those in ``only``, when
+        given) from its plain version); fails on no launch, a count that
+        is not the lane counts', or a plain call on card tensors.  The
+        plain version walks every step of the window whatever its lane
+        count, ~5 s on the flagship window, so the flagship paths hold
+        their batch-sized launch against it, as phase 18 does."""
+        self.torch.cuda.synchronize()
+        n = self.taint_cuda.taint_fast_cuda.launches
+        if not n or n != len(self.sizes):
+            fail(f"{what}: K1 counter {n}, launches seen {len(self.sizes)}")
+        if self.plain_cuda:
+            fail(f"{what}: K1's plain version ran on card tensors")
+        err = 0
+        for size, (a, kw, got) in sorted(self.kept.items()):
+            if only is not None and size not in only:
+                continue
+            err = max(err, compare(self.torch, got, self.plain(*a, **kw),
+                                   f"{what} {size}-lane launch"))
+        return n, err
+
+    def close(self) -> None:
+        self.trial.taint_fast_cuda = self.launch
+        self.taint_cuda.taint_fast_plain = self.plain
+
+
+class KillMemory:
+    """``PodHandle.kill`` wrapped: the card's allocated bytes before each
+    kill and after it (and a collection) — a dead pod drops its
+    scheduler; the kernels it shared stay with the registry."""
+
+    def __init__(self, torch):
+        import gc
+
+        from shrewd_tpu_torch.federation import pods
+
+        self.pods, self.kill, self.seen = pods, pods.PodHandle.kill, []
+        kill = self.kill
+
+        def counted(pod):
+            before = torch.cuda.memory_allocated()
+            kill(pod)
+            gc.collect()
+            self.seen.append([pod.name, before,
+                              torch.cuda.memory_allocated()])
+
+        pods.PodHandle.kill = counted
+
+    def close(self) -> None:
+        self.pods.PodHandle.kill = self.kill
+
+
+def tenant_tiers(root: str, what: str) -> None:
+    """Every tenant namespace of every pod under ``root`` ran all its
+    trials on the device tier, with integrity clean."""
+    import os
+
+    seen = 0
+    for dirpath, _dirs, files in os.walk(root):
+        if "stats.json" not in files or \
+                os.path.basename(os.path.dirname(dirpath)) != "tenants":
+            continue
+        stats = _read_json(os.path.join(dirpath, "stats.json"))
+        tiers = stats["resilience"]["tier_trials"]
+        ig = stats["integrity"]
+        bad = {k: ig[k] for k in ("canary_failures", "invariant_violations",
+                                  "audit_mismatches", "quarantined_batches")
+               if ig[k]}
+        if tiers["cpu"] or tiers["oracle"] or bad:
+            fail(f"{what} {dirpath}: tier trials {tiers}, integrity {bad}")
+        seen += 1
+    if not seen:
+        fail(f"{what}: no tenant stats under {root}")
+
+
+def fed_cli_main(result: str, argv: list) -> int:
+    """``--fed-cli RESULT ARGS…``: phase 19 (a)'s child process.  It runs
+    ``shrewd_tpu_torch.tools.federation`` as ``python -m`` runs it
+    (``runpy``, as ``__main__``, with ARGS) under K1's instrumentation,
+    and writes the launches, K1 against its plain version, the chaos
+    ledger, the counters, each tenant's tallies and the kills' card
+    memory to RESULT."""
+    import os
+    import runpy
+
+    import torch
+
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.federation import driver
+    from shrewd_tpu_torch.ops import taint_cuda
+    from shrewd_tpu_torch.service import journal
+
+    taint_cuda.build()
+    native.build()
+    feds: list = []
+    init = driver.Federation.__init__
+
+    def kept_init(self, *a, **kw):
+        init(self, *a, **kw)
+        feds.append(self)
+
+    driver.Federation.__init__ = kept_init
+    # the gateway's records, read at each append (compaction truncates)
+    done: list = []
+    append = journal.FleetJournal.append
+    tail = os.path.join("gateway_ckpt", "journal.jsonl")
+
+    def kept_append(self, kind, data=None):
+        if kind == "done" and self.path.endswith(tail):
+            done.append((data or {}).get("tenant"))
+        return append(self, kind, data)
+
+    journal.FleetJournal.append = kept_append
+    probe = K1Probe(torch)
+    mem = KillMemory(torch)
+    probe.reset()
+    sys.argv = ["shrewd_tpu_torch.tools.federation", *argv]
+    rc = 0
+    try:
+        runpy.run_module("shrewd_tpu_torch.tools.federation",
+                         run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        rc = e.code
+    if rc != 0 or not feds:
+        fail(f"(a) the federation CLI exited rc {rc}")
+    n, err = probe.read("(a) federation CLI", only=(MATRIX_BATCH,))
+    fed = feds[-1]
+    names = sorted(fed.gateway.entries)
+    doc = {"rc": rc, "launches": n, "k1_max_err": err,
+           "sizes": sorted(set(probe.sizes)),
+           "counters": fed.counters(),
+           "injected": fed.chaos.injected, "survived": fed.chaos.survived,
+           "entries": {nm: {"status": e.status, "pod": e.pod,
+                            "epoch": e.epoch,
+                            "path": [h["pod"] for h in e.history]}
+                       for nm, e in fed.gateway.entries.items()},
+           "tallies": {nm: {k: r["tallies"] for k, r in
+                            ((fed.gateway.entries[nm].result or {})
+                             .get("results") or {}).items()}
+                       for nm in names},
+           "done_records": {nm: done.count(nm) for nm in names},
+           "kills": mem.seen}
+    tmp = f"{result}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, result)
+    return 0
+
+
+def fed_phase(torch, marks, card) -> dict:
+    """Phase 19, the federation on the card → the timings, K1's launches
+    on each path, K1's largest difference from its plain version and the
+    federated matrix's front (``main`` holds it against phase 18's)."""
+    import os
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch.analysis import crashcheck
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan
+    from shrewd_tpu_torch.chaos import ChaosEngine
+    from shrewd_tpu_torch.federation import Autoscaler, Federation
+    from shrewd_tpu_torch.scenario import (FederatedScenarioRunner,
+                                           ScenarioMatrix)
+    from shrewd_tpu_torch.service import TenantSpec
+    from shrewd_tpu_torch.tools import federation as federation_cli
+
+    timings: dict = {"card": card}
+    launches: dict = {}
+    max_err = 0
+    t_phase = time.monotonic()
+    d = tempfile.mkdtemp(prefix="chip_smoke_fed_")
+
+    # (a) the CLI's direct mode in a child process; the solo runs of the
+    # three plans here meanwhile
+    paths, plans = [], {}
+    for structure, seed in FED_TENANTS:
+        plans[structure] = fed_plan(structure, seed,
+                                    min_trials=FED_MIN_TRIALS)
+        paths.append(os.path.join(d, f"{structure}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(plans[structure], f)
+    chaos_path = os.path.join(d, "chaos.json")
+    with open(chaos_path, "w") as f:
+        json.dump(FED_CHAOS, f)
+    root = os.path.join(d, "cli")
+    result = os.path.join(d, "cli.json")
+    argv = ["--plans", *paths, "--outdir", root, "--pods", str(FED_PODS),
+            "--expiry-rounds", str(FED_EXPIRY), "--chaos-plan", chaos_path,
+            "--http", "0"]
+    t0 = time.monotonic()
+    with open(result + ".out", "w") as out, \
+            open(result + ".err", "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fed-cli",
+             result, *argv], stdout=out, stderr=err)
+    solo: dict = {}
+    solo_s: dict = {}
+    for structure, plan in plans.items():
+        t1 = time.monotonic()
+        orch = Orchestrator(CampaignPlan.from_dict(plan))
+        list(orch.events())
+        solo_s[structure] = time.monotonic() - t1
+        solo[structure] = {f"{sp}/{st}": r.tallies.tolist()
+                           for (sp, st), r in orch.results.items()}
+    rc = child.wait(timeout=LANE_TIMEOUT_S)
+    wall_a = time.monotonic() - t0
+    with open(result + ".err") as f:
+        report = [ln for ln in f.read().splitlines()
+                  if ln.startswith(("  t", "federation:", "admitted"))]
+    if rc != 0:
+        with open(result + ".err") as f:
+            fail(f"(a) the federation CLI's process exited rc {rc}: "
+                 f"{f.read()[-3000:]}")
+    a = _read_json(result)
+    cnt = a["counters"]
+    want = {"kill_pod": 1, "partition_pod": 1}
+    if a["injected"] != want or a["survived"] != want:
+        fail(f"(a) chaos injected {a['injected']}, survived "
+             f"{a['survived']}, not {want}")
+    if cnt["dead_pods"] != ["pod2"] or cnt["failovers"] < 1 or \
+            cnt["fenced"] < 1:
+        fail(f"(a) counters {cnt}: want pod2 alone dead, failovers >= 1, "
+             "fenced >= 1")
+    names = {f"t{i}_{s}": s for i, (s, _) in enumerate(FED_TENANTS)}
+    if sorted(a["entries"]) != sorted(names) or any(
+            e["status"] != "done" for e in a["entries"].values()):
+        fail(f"(a) ledger {a['entries']}")
+    if any(v != 1 for v in a["done_records"].values()):
+        fail(f"(a) the gateway journaled {a['done_records']} done records "
+             "by tenant: each tenant is counted once")
+    for name, structure in names.items():
+        if a["tallies"][name] != solo[structure]:
+            fail(f"(a) {name}: {a['tallies'][name]} != its solo run "
+                 f"{solo[structure]}")
+    tenant_tiers(root, "(a)")
+    status = json.loads(_cli_stdout(federation_cli.main,
+                                    ["--status", root]))
+    if sorted(status["tenants"]) != sorted(names) or \
+            status["dead_pods"] != ["pod2"]:
+        fail(f"(a) --status: {status}")
+    max_err = max(max_err, a["k1_max_err"])
+    launches["federation CLI (a)"] = a["launches"]
+    log("(a) " + "; ".join(report))
+    log(f"(a) federation CLI, {FED_PODS} pods x {len(names)} tenants "
+        f"under kill_pod + partition_pod: rc 0, failovers "
+        f"{cnt['failovers']}, fenced {cnt['fenced']}, rounds "
+        f"{cnt['rounds']}; each tenant counted once (one journaled done "
+        f"record; paths {dict((n, e['path']) for n, e in a['entries'].items())}"
+        f"), == its solo "
+        f"run on the card; every trial on the device tier; K1 "
+        f"{a['launches']} launches (lane counts {a['sizes']}), == plain on "
+        f"the first batch; card memory allocated before/after the kill "
+        f"{a['kills']}; --status rc 0; wall {wall_a:.1f} s (solo runs "
+        f"{', '.join(f'{k} {v:.1f} s' for k, v in solo_s.items())}, beside "
+        f"it) ({card})")
+    timings["cli"] = {"wall_s": wall_a, "counters": cnt,
+                      "k1_launches": a["launches"], "solo_s": solo_s,
+                      "kills": a["kills"]}
+    marks("19 (a) federation CLI")
+
+    probe = K1Probe(torch)
+    mem = KillMemory(torch)
+    try:
+        # (b) a sharded campaign: the unsharded run on one pod first (the
+        # solo tallies and busy seconds), then 3 stripes on 3 pods
+        plan = fed_plan("regfile", 3, min_trials=FED_SHARD_TRIALS,
+                        max_trials=FED_SHARD_TRIALS)
+        one = Federation(os.path.join(d, "solo"), pod_names=("solo0",))
+        one.submit(TenantSpec(name="camp", plan=plan))
+        if one.serve() != 0:
+            fail("(b) the unsharded run did not converge")
+        unsharded = {k: v.tolist() for k, v in
+                     one.tenant_tallies("camp").items()}
+        solo_busy = one.pods["solo0"].busy_s
+        del one
+        probe.reset()
+        chaos = ChaosEngine(FED_SHARD_CHAOS)
+        t0 = time.monotonic()
+        fed = Federation(os.path.join(d, "sharded"),
+                         pod_names=tuple(f"pod{i}" for i in range(FED_PODS)),
+                         chaos=chaos, expiry_rounds=FED_EXPIRY)
+        adm = fed.submit(TenantSpec(name="camp", plan=plan,
+                                    shards=FED_SHARDS))
+        if fed.serve() != 0:
+            fail("(b) the sharded federation did not converge")
+        wall_b = time.monotonic() - t0
+        n_b, err_b = probe.read("(b) sharded campaign",
+                                only=(MATRIX_BATCH,))
+        e = fed.gateway.entries["camp"]
+        merged = {k: v.tolist() for k, v in
+                  fed.tenant_tallies("camp").items()}
+        if chaos.injected != {"kill_shard": 1} or \
+                chaos.survived != chaos.injected:
+            fail(f"(b) chaos {chaos.injected} / {chaos.survived}")
+        if merged != unsharded or e.result["status"] != "complete":
+            fail(f"(b) merged {merged} ({e.result['status']}) != the "
+                 f"unsharded run {unsharded}")
+        if len(fed.gateway.dead_pods) != 1 or fed.failovers < 1:
+            fail(f"(b) dead pods {fed.gateway.dead_pods}, failovers "
+                 f"{fed.failovers}")
+        tenant_tiers(os.path.join(d, "sharded"), "(b)")
+        busy = fed.counters()["busy_s"]
+        ratio = solo_busy / max(busy.values())
+        max_err = max(max_err, err_b)
+        launches["federation sharded (b)"] = n_b
+        log(f"(b) {adm['shards']} over {FED_PODS} pods under kill_shard: "
+            f"merged tallies == the unsharded run bitwise, {e.result['folds']}"
+            f" folds, failovers {fed.failovers}; K1 {n_b} launches, == plain "
+            f"on the first batch; busy s per pod {busy}, the "
+            f"unsharded pod {solo_busy:.2f} s: a ratio of {ratio:.2f} "
+            f"(a reading: the pods share one card); card memory before/after "
+            f"the kill {mem.seen}; wall {wall_b:.1f} s ({card})")
+        timings["sharded"] = {"wall_s": wall_b, "busy_s": busy,
+                              "unsharded_busy_s": solo_busy,
+                              "busy_ratio": ratio, "k1_launches": n_b,
+                              "folds": e.result["folds"],
+                              "kills": list(mem.seen)}
+        del fed
+        marks("19 (b) sharded campaign")
+
+        # (c) the port10 matrix through a federation of pods
+        probe.reset()
+        t0 = time.monotonic()
+        runner = FederatedScenarioRunner(
+            ScenarioMatrix.from_dict(matrix_doc()), os.path.join(d, "matrix"),
+            pod_names=("pod0", "pod1"), pareto_every=1,
+            autoscale=Autoscaler(**FED_AUTOSCALE))
+        if runner.serve() != 0:
+            fail("(c) the federated matrix did not converge")
+        wall_c = time.monotonic() - t0
+        n_c, err_c = probe.read("(c) federated matrix",
+                                only=(MATRIX_BATCH,))
+        gw = runner.fed.gateway
+        if sorted(gw.pods) != ["pod0", "pod1"] or gw.retiring or \
+                runner.fed.retired != runner.fed.scale_ups:
+            fail(f"(c) the pool did not return to its floor: {gw.pods}, "
+                 f"{runner.fed.scale_ups} up, {runner.fed.retired} retired")
+        art = _read_json(os.path.join(d, "matrix",
+                                      f"PARETO_{MATRIX_TAG}.json"))
+        tenant_tiers(os.path.join(d, "matrix"), "(c)")
+        max_err = max(max_err, err_c)
+        launches["federation matrix O3 cells (c)"] = n_c
+        front = pareto_front(art)
+        decisions = runner.decisions(runner.fed)
+        log(f"(c) FederatedScenarioRunner {MATRIX_TAG!r} on 2 pods + an "
+            f"autoscaler: rc 0, {runner.fed.scale_ups} scale-ups, "
+            f"{runner.fed.retired} retires, {runner.fed.round} rounds, "
+            f"{len(decisions)} cells pruned; K1 {n_c} launches, == plain on "
+            f"the first batch; wall {wall_c:.1f} s ({card})")
+        timings["matrix"] = {"wall_s": wall_c, "k1_launches": n_c,
+                             "scale_ups": runner.fed.scale_ups,
+                             "retired": runner.fed.retired,
+                             "rounds": runner.fed.round,
+                             "pruned": sorted(decisions)}
+        del runner
+        marks("19 (c) federated matrix")
+
+        # (d) a bounded gateway sweep on the card: the two-phase
+        # placement's route and place appends, each with its torn tail
+        probe.reset()
+        t0 = time.monotonic()
+        sweep = crashcheck.run_gateway_crashcheck(
+            os.path.join(d, "sweep"),
+            crashcheck.small_fleet_plans(seeds=(3, 5)),
+            max_points=FED_SWEEP_POINTS,
+            point_filter=lambda pt: pt.kind in ("route", "place"))
+        wall_d = time.monotonic() - t0
+        n_d, err_d = probe.read("(d) gateway sweep")
+        if not sweep["ok"] or sweep["failures"] or \
+                sweep["points_checked"] != FED_SWEEP_POINTS:
+            fail(f"(d) gateway sweep: ok {sweep['ok']}, "
+                 f"{sweep['points_checked']} points checked, failures "
+                 f"{sweep['failures'][:2]}")
+        max_err = max(max_err, err_d)
+        launches["federation crashcheck (d)"] = n_d
+        log(f"(d) run_gateway_crashcheck: ok, {sweep['points']} boundaries, "
+            f"{sweep['points_checked']} route/place points checked in "
+            f"{sweep['checks']} recoveries ({sweep['torn_checks']} torn), 0 "
+            f"divergent; K1 {n_d} launches, == plain on the first of each "
+            f"lane count; wall {wall_d:.1f} s ({card})")
+        timings["sweep"] = {"wall_s": wall_d, "points": sweep["points"],
+                            "checks": sweep["checks"], "k1_launches": n_d}
+        marks("19 (d) gateway sweep")
+    finally:
+        probe.close()
+        mem.close()
+    shutil.rmtree(d, ignore_errors=True)
+    timings["fed_phase_s"] = time.monotonic() - t_phase
+    return {"timings": timings, "launches": launches, "k1_max_err": max_err,
+            "front": front}
 
 
 def _cli_stdout(main, argv) -> str:
@@ -3669,10 +4150,17 @@ def main() -> int:
     log(json.dumps({"timings": mesh_run["timings"]}))
     lanes = join_lanes(lanes_dir, t_lanes)
     cli_run, matrix_run = lanes["cli_phase"], lanes["matrix_phase"]
+    fed_run = lanes["fed_phase"]
     log(json.dumps({"timings": cli_run["timings"]}))
     log(json.dumps({"timings": lanes["tier_phase"]}))
     log(json.dumps({"timings": matrix_run["timings"]}))
-    log(f"phases 11-15 and 18 in three processes: "
+    log(json.dumps({"timings": fed_run["timings"]}))
+    if fed_run["front"] != matrix_run["front"]:
+        fail("19 (c): the federated matrix's Pareto front differs from "
+             "phase 18's solo front")
+    log(f"19 (c): the federated front == phase 18's solo front, bitwise "
+        f"({len(fed_run['front'])} groups)")
+    log(f"phases 11-15, 18 and 19 in four processes: "
         f"{time.monotonic() - t_lanes:.1f} s (lanes "
         + ", ".join(f"{n} {s:.1f} s" for n, s in lanes["lane_s"].items())
         + ")")
@@ -3686,6 +4174,7 @@ def main() -> int:
     paths["launches"].update(ingest_run["launches"])
     paths["launches"].update(ckpt_run["launches"])
     paths["launches"].update(matrix_run["launches"])
+    paths["launches"].update(fed_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
@@ -3693,7 +4182,8 @@ def main() -> int:
         p: n for p, n in paths["launches"].items() if "chunked" in p}}
     max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"],
                   mesh_run["k1_max_err"], ingest_run["k1_max_err"],
-                  ckpt_run["k1_max_err"], matrix_run["k1_max_err"])
+                  ckpt_run["k1_max_err"], matrix_run["k1_max_err"],
+                  fed_run["k1_max_err"])
     k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),
@@ -3719,4 +4209,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--lane":
         sys.exit(lane_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--fed-cli":
+        sys.exit(fed_cli_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -30,10 +30,14 @@ The paths mirror the reference's:
   (``python -m shrewd_tpu_torch run|resume|hostdiff``)
 - ``ingest``, ``service`` — real workload binaries: the ptrace capture,
   the macro→µop lifters, the 64-bit emulator, the artifact store and the
-  journaled ingest pipeline with its write-ahead journal
+  journaled ingest pipeline with its write-ahead journal; the resident
+  fleet (``service``), the scenario matrix, and the federation of pods
+  over it (``federation``: gateway, pods, autoscaler, HTTP front)
+- ``analysis`` — the plan's certification config and the crash-point
+  checker (``analysis.crashcheck``)
 
 Entry points run on the CUDA cards (a mesh over every visible card) unless
 the caller passes ``device="cpu"`` (the CLI: ``--platform cpu``).
 """
 
-__version__ = "0.1.0"
+from shrewd_tpu_torch._version import __version__

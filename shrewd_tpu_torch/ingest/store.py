@@ -213,6 +213,7 @@ class ArtifactStore:
         os.chmod(tmp, 0o755)
         os.replace(tmp, path)
         resil.fsync_dir(self.bin_dir)
+        resil.notify_durability("rename", path, kind="store_binary")
         debug.dprintf("Ingest", "stored binary %s (%d bytes)",
                       digest[:12], len(data))
         return digest
@@ -246,6 +247,7 @@ class ArtifactStore:
             os.fsync(f.fileno())
         os.replace(tmp_path, final)
         resil.fsync_dir(os.path.dirname(final))
+        resil.notify_durability("rename", final, kind="store_payload")
         return sha
 
     def write_payload(self, digest: str, key: str, filename: str,

@@ -650,6 +650,39 @@ def write_json_atomic(path: str, doc: dict) -> None:
         os.fsync(f.fileno())
     os.replace(tmp, path)
     fsync_dir(os.path.dirname(os.path.abspath(path)))
+    notify_durability("rename", path)
+
+
+# --------------------------------------------------------------------------
+# durability-boundary observation (the crashcheck seam)
+# --------------------------------------------------------------------------
+#
+# The crash-point model checker (analysis/crashcheck.py) needs to see
+# every instant at which durable state changes — each WAL append, each
+# journal compaction, each atomic-rename commit — so it can re-execute
+# recovery from the filesystem state at EVERY boundary.  One process-
+# wide hook, notified by the durable writers right after their fsync
+# lands; None (the default) costs one ``is not None`` check.
+
+_durability_hook = None
+
+
+def set_durability_hook(fn):
+    """Install (``fn``) or clear (``None``) the process-wide durability
+    observer; returns the previous hook so shims can nest."""
+    global _durability_hook
+    prev = _durability_hook
+    _durability_hook = fn
+    return prev
+
+
+def notify_durability(event: str, path: str, **meta) -> None:
+    """Report one durability boundary (``event`` in append/compact/
+    rename) to the installed observer, if any.  Called by the durable
+    writers AFTER the bytes are on disk — the boundary is the moment a
+    crash could no longer un-happen the write."""
+    if _durability_hook is not None:
+        _durability_hook(event, path, **meta)
 
 
 def load_json_verified(path: str) -> dict:

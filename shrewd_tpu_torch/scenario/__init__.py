@@ -14,8 +14,8 @@ artifact.
 
 Matrices are host-side data; device work starts when the scheduler
 elaborates cells or the Pareto fold calls into ``search/protect``.
-``FederatedScenarioRunner`` is exported but raises: it waits for the
-port's federation layer."""
+``FederatedScenarioRunner`` runs the same closed loop over a federation
+of pods (``shrewd_tpu_torch/federation/``)."""
 
 from shrewd_tpu_torch.scenario.matrix import (COHERENCE, KNOWN_TARGETS,
                                               MATRIX_SCHEMA, Cell,

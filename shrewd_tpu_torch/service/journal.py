@@ -157,7 +157,9 @@ class FleetJournal:
         self._f.flush()
         os.fsync(self._f.fileno())
         # the durability boundary: a crash from here on replays this
-        # record
+        # record (the crashcheck model checker enumerates these)
+        resil.notify_durability("append", self.path, seq=rec["seq"],
+                                kind=rec["kind"])
         self.next_seq += 1
         self.appended += 1
         self.since_compact += 1
@@ -184,6 +186,8 @@ class FleetJournal:
             os.fsync(f.fileno())
         os.replace(tmp, self.path)
         resil.fsync_dir(os.path.dirname(os.path.abspath(self.path)))
+        resil.notify_durability("compact", self.path,
+                                next_seq=self.next_seq)
         self._f = open(self.path, "a")
         self.compactions += 1
         self.since_compact = 0

@@ -1304,3 +1304,65 @@ def test_two_tenant_fleet_on_card_equals_solo_runs(cuda, tmp_path):
         taint_cuda.taint_fast_plain = orig
     assert "cuda" not in plain_calls
     assert out["cuda"] == out["cpu"]
+
+
+def test_three_pod_federation_with_kill_pod_on_card_equals_cpu(cuda,
+                                                               tmp_path):
+    """A 3-pod federation on the card, one pod killed by ``kill_pod``
+    mid-campaign and its tenants failed over: every tenant's tallies are
+    bitwise the same federation's on the CPU, the gateway's ledger is
+    the same, and each K1 launch is bitwise its plain version's on the
+    same card tensors."""
+    from shrewd_tpu_torch.chaos import ChaosEngine
+    from shrewd_tpu_torch.federation import Federation
+    from shrewd_tpu_torch.ops import trial
+    from shrewd_tpu_torch.parallel.mesh import make_mesh
+    from shrewd_tpu_torch.service import TenantSpec
+
+    plans = {}
+    for i, seed in enumerate((3, 5, 7)):
+        p = _tiny_plan("serial", False)
+        p.seed = seed
+        p.structures = ["regfile"]
+        p.min_trials = p.max_trials = 128
+        plans[f"t{i}"] = p.to_dict()
+    launch = trial.taint_fast_cuda
+    checked = []
+
+    def held(*a, **kw):
+        got = launch(*a, **kw)
+        ref = taint_fast_plain(*a, **{x: v for x, v in kw.items()
+                                      if x != "stream"})
+        for f in ("outcome", "escaped", "overflow", "tags", "vals",
+                  "steps"):
+            assert torch.equal(getattr(got, f).to(torch.int64),
+                               getattr(ref, f).to(torch.int64)), f
+        checked.append(int(a[3].kind.shape[0]))
+        return got
+
+    out = {}
+    trial.taint_fast_cuda = held
+    try:
+        for dev in (cuda, "cpu"):
+            chaos = ChaosEngine({"faults": [
+                {"kind": "kill_pod", "pod": "pod0", "at_tick": 2}]})
+            fed = Federation(str(tmp_path / str(dev)),
+                             pod_names=("pod0", "pod1", "pod2"),
+                             mesh=make_mesh([dev]), chaos=chaos,
+                             expiry_rounds=2)
+            for n, p in plans.items():
+                fed.submit(TenantSpec(name=n, plan=p))
+            before = taint_fast_cuda.launches
+            assert fed.serve() == 0
+            assert chaos.injected == chaos.survived == {"kill_pod": 1}
+            assert fed.gateway.dead_pods == {"pod0"} and fed.failovers >= 1
+            if dev is cuda:
+                assert taint_fast_cuda.launches - before == len(checked) > 0
+            out[str(dev)] = (
+                {n: {k: v.tolist() for k, v in fed.tenant_tallies(n).items()}
+                 for n in plans},
+                {n: (e.status, e.pod, e.epoch, [h["pod"] for h in e.history])
+                 for n, e in fed.gateway.entries.items()})
+    finally:
+        trial.taint_fast_cuda = launch
+    assert out["cuda"] == out["cpu"]

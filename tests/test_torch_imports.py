@@ -15,9 +15,13 @@ preprocess stage), ``hostdiff.run_device`` with and without escalation
 and the lifted restore of a captured window, on the CPU, and the fleet
 and scenario CLIs (``tools.fleet --plans`` and ``tools.scenario --serve``
 and ``--status`` with ``--platform cpu``), the protection search and the
-thermal network.  The fleet's mesh, ``DesignSpace`` and the thermal
-factorization default to the card too."""
+thermal network, and the federation CLI (``tools.federation --plans``
+under ``kill_pod`` chaos with the HTTP front, then ``--status``, with
+``--platform cpu``) and a gateway crash sweep.  The fleet's mesh, a
+federation pod's mesh, ``DesignSpace`` and the thermal factorization
+default to the card too; the port's version is the reference's."""
 
+import functools
 import os
 import shutil
 import subprocess
@@ -241,6 +245,38 @@ with tempfile.TemporaryDirectory() as d, \
                               "cpu", "--pareto-every", "1"]) == 0
     assert scenario_cli.main(["--status", os.path.join(d, "m")]) == 0
     assert os.path.exists(os.path.join(d, "m", "PARETO_t.json"))
+import shrewd_tpu_torch.federation.autoscale
+import shrewd_tpu_torch.federation.driver
+import shrewd_tpu_torch.federation.gateway
+import shrewd_tpu_torch.federation.http_front
+import shrewd_tpu_torch.federation.pods
+from shrewd_tpu_torch import federation
+from shrewd_tpu_torch.analysis import crashcheck
+from shrewd_tpu_torch.tools import federation as federation_cli
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stderr(io.StringIO()), \
+        contextlib.redirect_stdout(io.StringIO()) as out:
+    json.dump(small, open(os.path.join(d, "p.json"), "w"))
+    json.dump({"faults": [{"kind": "kill_pod", "pod": "pod0",
+                           "at_tick": 1}]},
+              open(os.path.join(d, "chaos.json"), "w"))
+    fed_root = os.path.join(d, "fed")
+    assert federation_cli.main([
+        "--plans", os.path.join(d, "p.json"), os.path.join(d, "p.json"),
+        "--outdir", fed_root, "--pods", "2", "--expiry-rounds", "2",
+        "--chaos-plan", os.path.join(d, "chaos.json"), "--http", "0",
+        "--platform", "cpu"]) == 0
+    assert federation_cli.main(["--status", fed_root]) == 0
+    assert federation_cli.main(["--plans", os.path.join(d, "p.json"),
+                                "--certify", "warn"]) == 2
+    status = json.loads(out.getvalue()[out.getvalue().index("{"):])
+    assert sorted(status["tenants"]) == ["t0_p", "t1_p"], status
+    assert status["dead_pods"] == ["pod0"], status
+    doc = crashcheck.run_gateway_crashcheck(
+        os.path.join(d, "sweep"), crashcheck.small_fleet_plans(
+            seeds=(3,), n_batches=1), mesh=make_mesh(["cpu"]),
+        point_filter=lambda pt: pt.kind in ("route", "place"))
+    assert doc["ok"] and doc["points_checked"] == 2, doc
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded
@@ -291,6 +327,13 @@ def _fleet_mesh():
     return CampaignScheduler().mesh
 
 
+def _pod_mesh(tmp_path):
+    from shrewd_tpu_torch.federation import Federation
+
+    fed = Federation(str(tmp_path / "fed"), pod_names=("pod0",))
+    return fed.pods["pod0"].build().mesh
+
+
 @pytest.mark.parametrize("make", [
     lambda: prng.campaign_key(0),
     lambda: prng.threefry_seed(7),
@@ -300,14 +343,25 @@ def _fleet_mesh():
     lambda: _design_space().device,
     lambda: _thermal().G,
     lambda: _fleet_mesh().devices[0],
+    lambda tmp_path: _pod_mesh(tmp_path).devices[0],
 ], ids=["campaign_key", "threefry_seed", "trial_key", "keys_from_key_data",
-        "fault_from_arrays", "design_space", "thermal", "fleet_mesh"])
-def test_keys_and_inputs_default_to_the_card(make):
+        "fault_from_arrays", "design_space", "thermal", "fleet_mesh",
+        "federation_pod_mesh"])
+def test_keys_and_inputs_default_to_the_card(make, tmp_path):
+    if make.__code__.co_argcount:
+        make = functools.partial(make, tmp_path)
     if torch.cuda.is_available():
         assert make().device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def test_version_is_the_reference_version():
+    from shrewd_tpu._version import __version__ as ref
+    import shrewd_tpu_torch
+
+    assert shrewd_tpu_torch.__version__ == ref
 
 
 def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):

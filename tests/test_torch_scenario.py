@@ -334,8 +334,6 @@ def test_cli_serve_on_the_cpu(tmp_path):
     assert art["decisions"] == [{"cell": "cli.wl.w0.regfile.secded.tnom",
                                  "dominated_by":
                                  "cli.wl.w0.regfile.parity.tnom"}]
-    with pytest.raises(NotImplementedError, match="federation"):
-        port_runner.FederatedScenarioRunner(None, str(tmp_path))
 
 
 # --- a kill between a prune decision and its drain ---------------------------
