@@ -265,7 +265,23 @@ JAX.  Phases, each fatal:
     ``main`` once the lanes end; (d) ``run_gateway_crashcheck`` over
     ``small_fleet_plans(seeds=(3, 5))``, the two-phase placement's 4
     ``route``/``place`` points each with its torn tail: ``ok``, 0
-    divergent recoveries.
+    divergent recoveries;
+20. certification on the card, in the ``cli`` lane after phase 13: (a)
+    ``tools.graftlint --strict --audit-waivers --json --sarif`` over the
+    port's tree with the step audit on the card: rc 0, every standard
+    step's certificate ``ok`` at one transfer, both violation fixtures
+    rejected, and beside each certificate the auditor's host-sync census
+    equal to torch's ``set_sync_debug_mode("warn")`` count over the same
+    call; (b) phase 13's plan at full width, ``--until-ci --certify
+    strict``: rc 0, the results equal to ``PIN_CLI``, ``stats.json``
+    (less the port's own ``perf`` fields) equal to phase 13's until-CI
+    run's, nothing refused, K1 launches = the batches + 2 per canary run
+    + the audit samples + the launches of the audited steps, K1 bitwise
+    equal to its plain version on the first batch launch of each
+    structure; (c) once the lanes end, ``tools.obs --summarize`` and
+    ``--timeline`` over the trace phase 13's resumed run wrote and
+    ``--tail`` over phase 18's and phase 19's ``metrics.json``: rc 0
+    each.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -530,11 +546,20 @@ FED_AUTOSCALE = dict(min_pods=2, max_pods=3, up_trials=16384.0,
                      down_trials=2048.0, cooldown_rounds=1)
 FED_SWEEP_POINTS = 4
 
-LANES = {"cli": ("cli_phase",), "tiers": ("tier_phase", "matrix_phase"),
-         "fed": ("fed_phase",)}
-LANE_PHASES = {"cli": "13", "tiers": "14 and 18", "fed": "19"}
+LANES = {"cli": ("cli_phase", "certify_phase"),
+         "tiers": ("tier_phase", "matrix_phase"), "fed": ("fed_phase",)}
+LANE_PHASES = {"cli": "13 and 20", "tiers": "14 and 18", "fed": "19"}
 LANE_TIMEOUT_S = 900            # from the lanes' start to their last result
 _lanes: list = []               # (name, Popen) of the lanes started
+KEEP_DIR = None                 # in a lane: where phases leave artifacts
+_PHASES: dict = {}              # in a lane: the results of its phases so far
+# the perf fields of stats.json that hold wall-clock time or count the
+# port's own machinery (phase 20 (b) compares the rest)
+PERF_OWN = ("device_step_seconds", "device_wait_seconds", "host_seconds",
+            "overlap_fraction", "host_roundtrips_saved",
+            "executables_compiled", "executables_reused",
+            "executables_certified", "executables_refused",
+            "exec_cache_keys")
 
 
 def log(msg: str) -> None:
@@ -544,6 +569,20 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def keep(tag: str, paths) -> None:
+    """In a lane: copy ``paths`` into ``KEEP_DIR/tag/`` for phase 20 (c),
+    which runs in the parent once the lanes end."""
+    import os
+    import shutil
+
+    if KEEP_DIR is None:
+        return
+    dest = os.path.join(KEEP_DIR, tag)
+    os.makedirs(dest, exist_ok=True)
+    for path in paths:
+        shutil.copy(path, dest)
 
 
 def card_line() -> str:
@@ -1520,10 +1559,18 @@ def cli_phase(torch, marks, card) -> dict:
              "batches + 3 x (2 canaries + 1 audit sample)")
     launches["campaign CLI (c) first 3 batches"] = first
     ckpt_c = os.path.join(d, "c", "campaign_ckpt")
-    resumed = run("(c) resume", ["resume", ckpt_c, "--outdir",
-                                 os.path.join(d, "c2")], PIN_CLI, n0=3,
-                  mon0=_read_json(os.path.join(ckpt_c,
-                                               "campaign.json"))["integrity"])
+    # traced, for phase 20 (c): the tracer goes off again after it
+    from shrewd_tpu_torch.obs import trace as obs_trace
+
+    try:
+        resumed = run("(c) resume", ["resume", ckpt_c, "--outdir",
+                                     os.path.join(d, "c2"), "--trace"],
+                      PIN_CLI, n0=3, mon0=_read_json(os.path.join(
+                          ckpt_c, "campaign.json"))["integrity"])
+    finally:
+        obs_trace.disable()
+    keep("13", [os.path.join(d, "c2", "trace.json")])
+    until_stats = _read_json(os.path.join(d, "b2", "stats.json"))
     # the host syncs of one bare batch step
     kernel = TrialKernel(trace, O3Config(shadow_model="fupool"))
     keys = prng.trial_keys(prng.campaign_key(0), CI_BATCH)
@@ -1564,7 +1611,254 @@ def cli_phase(torch, marks, card) -> dict:
         f"phase 13 {timings['cli_phase_s']:.1f} s ({card})")
     launches["campaign CLI (c) resume"] = resumed["k1_launches"]
     marks("13 campaign CLI")
+    return {"timings": timings, "launches": launches, "k1_max_err": max_err,
+            "until_stats": until_stats}
+
+
+def certify_phase(torch, marks, card) -> dict:
+    """Phase 20 (a) and (b), certification on the card, after phase 13 in
+    its lane → the timings, K1's launches on each path and K1's largest
+    difference from its plain version ((c) runs in ``main``)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.analysis import step_audit
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan, TraceFileSpec
+    from shrewd_tpu_torch.main import main as cli
+    from shrewd_tpu_torch.models.o3 import KIND_FU, KIND_REGFILE, O3Config
+    from shrewd_tpu_torch.ops import taint_cuda, trial
+    from shrewd_tpu_torch.ops.taint_cuda import taint_fast_cuda
+    from shrewd_tpu_torch.parallel import exec_cache
+    from shrewd_tpu_torch.tools import graftlint as graftlint_cli
+    from shrewd_tpu_torch.trace import format as tf
+    from shrewd_tpu_torch.utils.device import host_sync
+
+    timings: dict = {"card": card}
+    launches: dict = {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_certify_")
+    t_phase = time.monotonic()
+
+    # (a) the linter and the step audit on the card
+    taint_fast_cuda.launches = 0
+    lint_json = os.path.join(d, "lint.json")
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = graftlint_cli.main(["--strict", "--audit-waivers", "--json",
+                                 lint_json, "--sarif",
+                                 os.path.join(d, "lint.sarif")])
+    wall_a = time.monotonic() - t0
+    if rc != 0:
+        sys.stdout.write(out.getvalue())
+        fail(f"20 (a): tools.graftlint rc {rc}")
+    doc = _read_json(lint_json)
+    ex = doc["executables"]
+    if doc["violations"] or doc["stale_waivers"] or not ex["ok"]:
+        fail(f"20 (a): lint {doc['violations']} stale "
+             f"{doc['stale_waivers']} executables ok {ex['ok']}")
+    if not (ex["fixture_rejected"] and ex["until_ci_fixture_rejected"]):
+        fail("20 (a): a violation fixture was certified on the card")
+    census = {}
+    for name, cert in [*ex["certificates"].items(),
+                       ("fixture/broken-interval", ex["violation_fixture"]),
+                       ("fixture/broken-until-ci",
+                        ex["until_ci_violation_fixture"])]:
+        ours = sum(cert["syncs"].values())
+        census[name] = {"syncs": cert["syncs"], "total": ours,
+                        "torch": cert["sync_debug"],
+                        "transfers": cert["transfers"]}
+        if ours != cert["sync_debug"]:
+            fail(f"20 (a) {name}: the auditor counted {ours} host syncs "
+                 f"{cert['syncs']}, torch's sync debug mode "
+                 f"{cert['sync_debug']}")
+        if not name.startswith("fixture") and (
+                not cert["ok"] or cert["transfers"] != 1):
+            fail(f"20 (a) {name}: {cert['violations']}")
+    launches["certify (a) standard steps"] = taint_fast_cuda.launches
+    timings["certify_a"] = {"wall_s": wall_a, "census": census,
+                            "waivers": len(doc["waivers"])}
+    log(f"20 (a): tools.graftlint rc 0, 0 violations, {len(doc['waivers'])}"
+        f" reasoned waivers, 0 stale; {len(ex['certificates'])} "
+        "certificates ok at 1 transfer on the card, both fixtures "
+        f"rejected; the sync census == torch's count on each of "
+        f"{len(census)} calls ("
+        + ", ".join(f"{n} {c['total']}" for n, c in census.items())
+        + f"); K1 {taint_fast_cuda.launches} launches; {wall_a:.1f} s "
+        f"({card})")
+    marks("20 (a) graftlint on the card")
+
+    # (b) phase 13's plan, until-CI, certified strict
+    until_stats = _PHASES.get("cli_phase", {}).get("until_stats")
+    if until_stats is None:
+        fail("20 (b): phase 13's until-CI stats.json is missing")
+    trace = native.generate_trace(**FLAGSHIP)
+    npz = os.path.join(d, "flagship.npz")
+    tf.save(npz, trace, meta={"source": "native.generate_trace",
+                              **FLAGSHIP})
+    plan = CampaignPlan(
+        simpoints=[TraceFileSpec(name="flagship", path=npz)],
+        structures=["regfile", "fu"], batch_size=CI_BATCH,
+        target_halfwidth=CLI_TARGET, stratify=True,
+        machine=O3Config(shadow_model="fupool"))
+    plan_path = os.path.join(d, "plan.json")
+    plan.dump_json(plan_path)
+    sizes: list = []
+    kept: dict = {}
+    audit_sizes: list = []
+    launch = trial.taint_fast_cuda
+
+    def sized(*a, **kw):
+        got = launch(*a, **kw)
+        n = int(a[3].kind.shape[0])
+        sizes.append(n)
+        # this probe's own host read, inside the audited steps too: marked
+        # as designed, so the strict auditor judges the program alone
+        with host_sync("chip_smoke probe"):
+            kind = int(a[3].kind[0])
+        if n == CI_BATCH and kind not in kept:
+            kept[kind] = (a, {x: v for x, v in kw.items() if x != "stream"},
+                          got)
+        return got
+
+    audit_call = step_audit.StepAuditor.__call__
+    audit_s = [0.0]
+
+    def timed_audit(self, fn, args, key):
+        n0, t = len(sizes), time.monotonic()
+        try:
+            return audit_call(self, fn, args, key)
+        finally:
+            audit_s[0] += time.monotonic() - t
+            audit_sizes.extend(sizes[n0:])
+
+    trial.taint_fast_cuda = sized
+    step_audit.StepAuditor.__call__ = timed_audit
+    taint_fast_cuda.launches = 0
+    outdir = os.path.join(d, "b")
+    t0 = time.monotonic()
+    try:
+        rc = cli(["run", plan_path, "--outdir", outdir, "--until-ci",
+                  "--certify", "strict"])
+        torch.cuda.synchronize()
+    finally:
+        trial.taint_fast_cuda = launch
+        step_audit.StepAuditor.__call__ = audit_call
+        auditor = exec_cache.current_auditor()
+        exec_cache.clear_auditor()
+    wall_b = time.monotonic() - t0
+    if rc != 0:
+        fail(f"20 (b): CLI rc {rc}")
+    ckpt = _read_json(os.path.join(outdir, "campaign_ckpt",
+                                   "campaign.json"))
+    stats = _read_json(os.path.join(outdir, "stats.json"))
+    batches = 0
+    for s, pin in PIN_CLI.items():
+        st = ckpt["state"]["flagship"][s]
+        got = dict(tallies=st["tallies"], trials=sum(st["tallies"]),
+                   batches=st["next_batch"], strata=st["strata"])
+        if got != pin or not st["converged"]:
+            fail(f"20 (b) {s}: {got} != JAX reference {pin}")
+        batches += pin["batches"]
+    perf = stats["perf"]
+    if perf["executables_refused"] or not perf["executables_certified"]:
+        fail(f"20 (b): {perf['executables_refused']} steps refused, "
+             f"{perf['executables_certified']} certified")
+    if auditor is None or not auditor.strict or auditor.failed:
+        fail("20 (b): the strict auditor was not installed or failed a "
+             "step")
+    same = {}
+    for tag, doc_s in (("strict", stats), ("phase 13", until_stats)):
+        doc_s = json.loads(json.dumps(doc_s))
+        for k in PERF_OWN:
+            doc_s["perf"].pop(k)
+        same[tag] = doc_s
+    if same["strict"] != same["phase 13"]:
+        diff = sorted(k for k in same["strict"]
+                      if same["strict"][k] != same["phase 13"].get(k))
+        fail(f"20 (b): stats.json differs from phase 13's until-CI run "
+             f"in {diff}")
+    ig = ckpt["integrity"]
+    want = {CI_BATCH: batches, 3: ig["canary_runs"], 2: ig["canary_runs"],
+            64: ig["audit_batches"]}
+    for n in audit_sizes:
+        want[n] = want.get(n, 0) + 1
+    got = {n: sizes.count(n) for n in set(sizes) | set(want)}
+    if got != want or taint_fast_cuda.launches != len(sizes):
+        fail(f"20 (b): K1 launches by lane count {got} != the batches, "
+             f"canaries, audit samples and audited steps {want} (counter "
+             f"{taint_fast_cuda.launches})")
+    if audit_sizes.count(CI_BATCH) < 1:
+        fail("20 (b): no audited step launched K1 on a batch")
+    max_err = 0
+    for kind, name in ((KIND_REGFILE, "regfile"), (KIND_FU, "fu")):
+        if kind not in kept:
+            fail(f"20 (b): no {CI_BATCH}-lane K1 launch of {name} was kept")
+        args, kw, res = kept[kind]
+        max_err = max(max_err, compare(
+            torch, res, taint_cuda.taint_fast_plain(*args, **kw),
+            f"20 (b) {name} batch"))
+    launches["certify (b) strict until-CI CLI"] = len(sizes)
+    timings["certify_b"] = {
+        "wall_s": wall_b, "batches": batches,
+        "trials_per_s": batches * CI_BATCH / wall_b,
+        "audit_s": audit_s[0], "audited": auditor.audited,
+        "certified": perf["executables_certified"],
+        "k1_launches": len(sizes), "k1_audit_launches": len(audit_sizes),
+        "canary_runs": ig["canary_runs"],
+        "audit_batches": ig["audit_batches"],
+        "phase13_until_wall_s": _PHASES["cli_phase"]["timings"][
+            "cli_(b)_until-CI"]["wall_s"]}
+    log(f"20 (b): --until-ci --certify strict rc 0, results == JAX pins, "
+        f"stats.json == phase 13's until-CI run's but for the port's own "
+        f"perf fields, {auditor.audited} steps audited, "
+        f"{perf['executables_certified']} certified, 0 refused; K1 "
+        f"{len(sizes)} launches = {batches} batches + 2 x "
+        f"{ig['canary_runs']} canary runs + {ig['audit_batches']} audit "
+        f"samples + {len(audit_sizes)} in the audited steps, == plain on "
+        f"the regfile and fu batch launches; {wall_b:.1f} s, of which "
+        f"{audit_s[0]:.1f} s auditing (phase 13's until-CI run "
+        f"{timings['certify_b']['phase13_until_wall_s']:.1f} s) ({card})")
+    shutil.rmtree(d, ignore_errors=True)
+    timings["certify_phase_s"] = time.monotonic() - t_phase
+    marks("20 (b) certified CLI")
     return {"timings": timings, "launches": launches, "k1_max_err": max_err}
+
+
+def obs_phase(keep_dir: str, card) -> dict:
+    """Phase 20 (c), in ``main`` once the lanes end: ``tools.obs`` over
+    the artifacts phases 13, 18 and 19 left → the timings."""
+    import contextlib
+    import io
+    import os
+
+    from shrewd_tpu_torch.tools import obs as obs_cli
+
+    t0 = time.monotonic()
+    trace_json = os.path.join(keep_dir, "13", "trace.json")
+    runs = {"summarize 13": ["--summarize", trace_json],
+            "timeline 13": ["--timeline", trace_json],
+            "tail 18": ["--tail", os.path.join(keep_dir, "18")],
+            "tail 19": ["--tail", os.path.join(keep_dir, "19")]}
+    lines = {}
+    for tag, argv in runs.items():
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = obs_cli.main(argv)
+        if rc != 0 or not out.getvalue().strip():
+            fail(f"20 (c) tools.obs {' '.join(argv)}: rc {rc} "
+                 f"{err.getvalue()[-300:]}")
+        lines[tag] = len(out.getvalue().splitlines())
+    wall = time.monotonic() - t0
+    log(f"20 (c): tools.obs --summarize / --timeline over phase 13's "
+        f"trace, --tail over phase 18's and 19's metrics.json: rc 0 each "
+        f"({', '.join(f'{k} {n} lines' for k, n in lines.items())}); "
+        f"{wall:.1f} s ({card})")
+    return {"wall_s": wall, "lines": lines}
 
 
 def _free_port() -> int:
@@ -3240,6 +3534,7 @@ def matrix_phase(torch, marks, card) -> dict:
         fail("(c) --pareto re-emitted another artifact than (b)'s")
     log("(c) --status and --pareto: rc 0, the re-emitted artifact == (b)'s")
     probe.close()
+    keep("18", [os.path.join(outdir, "metrics.json")])
     shutil.rmtree(d, ignore_errors=True)
     timings["matrix"] = {
         "wall_s": wall, "tenants": 12, "statuses": statuses,
@@ -3706,6 +4001,10 @@ def fed_phase(torch, marks, card) -> dict:
     finally:
         probe.close()
         mem.close()
+    import glob
+
+    keep("19", sorted(glob.glob(os.path.join(root, "**", "metrics.json"),
+                                recursive=True))[:1])
     shutil.rmtree(d, ignore_errors=True)
     timings["fed_phase_s"] = time.monotonic() - t_phase
     return {"timings": timings, "launches": launches, "k1_max_err": max_err,
@@ -3780,9 +4079,10 @@ def stop_lanes() -> None:
 
 def join_lanes(d: str, t_start: float) -> dict:
     """Wait for every lane, print its output and fail if it failed → the
-    results of its phases by function name, and each lane's seconds."""
+    results of its phases by function name, and each lane's seconds (the
+    lanes' directory, with the artifacts they kept, stays for phase 20
+    (c))."""
     import os
-    import shutil
 
     results: dict = {"lane_s": {}}
     for name, proc in _lanes:
@@ -3810,7 +4110,6 @@ def join_lanes(d: str, t_start: float) -> dict:
         results.update(doc["phases"])
         results["lane_s"][name] = doc["wall_s"]
     stop_lanes()
-    shutil.rmtree(d, ignore_errors=True)
     return results
 
 
@@ -3856,10 +4155,12 @@ def lane_main(name: str, result: str) -> int:
         log(f"phase {phase}: {now - t_mark[0]:.1f} s")
         t_mark[0] = now
 
-    phases = {}
+    global KEEP_DIR
+    KEEP_DIR = os.path.join(os.path.dirname(result), "keep")
     for fn in LANES[name]:
         t_mark[0] = time.monotonic()
-        phases[fn] = globals()[fn](torch, marks, card)
+        _PHASES[fn] = globals()[fn](torch, marks, card)
+    phases = _PHASES
     tmp = f"{result}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         json.dump({"phases": phases, "wall_s": time.monotonic() - t0}, f)
@@ -3868,6 +4169,9 @@ def lane_main(name: str, result: str) -> int:
 
 
 def main() -> int:
+    import os
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4150,8 +4454,13 @@ def main() -> int:
     log(json.dumps({"timings": mesh_run["timings"]}))
     lanes = join_lanes(lanes_dir, t_lanes)
     cli_run, matrix_run = lanes["cli_phase"], lanes["matrix_phase"]
-    fed_run = lanes["fed_phase"]
+    fed_run, cert_run = lanes["fed_phase"], lanes["certify_phase"]
+    cli_run.pop("until_stats")
+    obs_run = obs_phase(os.path.join(lanes_dir, "keep"), card)
+    shutil.rmtree(lanes_dir, ignore_errors=True)
+    cert_run["timings"]["certify_c"] = obs_run
     log(json.dumps({"timings": cli_run["timings"]}))
+    log(json.dumps({"timings": cert_run["timings"]}))
     log(json.dumps({"timings": lanes["tier_phase"]}))
     log(json.dumps({"timings": matrix_run["timings"]}))
     log(json.dumps({"timings": fed_run["timings"]}))
@@ -4160,7 +4469,7 @@ def main() -> int:
              "phase 18's solo front")
     log(f"19 (c): the federated front == phase 18's solo front, bitwise "
         f"({len(fed_run['front'])} groups)")
-    log(f"phases 11-15, 18 and 19 in four processes: "
+    log(f"phases 11-15 and 18-20 in four processes: "
         f"{time.monotonic() - t_lanes:.1f} s (lanes "
         + ", ".join(f"{n} {s:.1f} s" for n, s in lanes["lane_s"].items())
         + ")")
@@ -4175,6 +4484,7 @@ def main() -> int:
     paths["launches"].update(ckpt_run["launches"])
     paths["launches"].update(matrix_run["launches"])
     paths["launches"].update(fed_run["launches"])
+    paths["launches"].update(cert_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
@@ -4183,7 +4493,7 @@ def main() -> int:
     max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"],
                   mesh_run["k1_max_err"], ingest_run["k1_max_err"],
                   ckpt_run["k1_max_err"], matrix_run["k1_max_err"],
-                  fed_run["k1_max_err"])
+                  fed_run["k1_max_err"], cert_run["k1_max_err"])
     k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),

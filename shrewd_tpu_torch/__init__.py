@@ -33,7 +33,9 @@ The paths mirror the reference's:
   journaled ingest pipeline with its write-ahead journal; the resident
   fleet (``service``), the scenario matrix, and the federation of pods
   over it (``federation``: gateway, pods, autoscaler, HTTP front)
-- ``analysis`` — the plan's certification config and the crash-point
+- ``analysis`` — certification: the step auditor and ``certify`` over the
+  campaign steps, the GL1xx/GL2xx linters over this package
+  (``python -m shrewd_tpu_torch.tools.graftlint``) and the crash-point
   checker (``analysis.crashcheck``)
 
 Entry points run on the CUDA cards (a mesh over every visible card) unless

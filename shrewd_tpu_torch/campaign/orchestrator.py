@@ -29,9 +29,13 @@ A chaos plan (``chaos.py``) injects faults at the hook points the
 orchestrator owns; an elastic context (``parallel/elastic.py``) shares the
 campaign with other worker processes through a lease board.
 
-Not in the port yet, each raising ``NotImplementedError`` before any
-trial runs: the static certification (``analysis.certify``) and a
-persistent compilation cache.  Neither is reachable from a default plan.
+A plan's ``analysis.certify`` ("warn" or "strict") installs the step
+auditor (``analysis.install_step_auditor``): each campaign step kind is
+certified on its first dispatch, and "strict" refuses a violating step
+before its result is counted.  Not in the port, raising
+``NotImplementedError`` before any trial runs: a persistent compilation
+cache (``pipeline.compilation_cache_dir``; the port compiles nothing per
+step).
 """
 
 from __future__ import annotations
@@ -276,12 +280,8 @@ class Orchestrator:
         if mesh is not None and device is not None and not any(
                 same_device(d, device) for d in mesh.devices):
             raise ValueError(f"device {device!r} is not on the mesh {mesh}")
-        # every option this slice does not run is refused here, before the
-        # first trial (none of them is reachable from a default plan)
-        if plan.analysis.certify != "off":
-            raise NotImplementedError(
-                f"static certification (analysis.certify="
-                f"{plan.analysis.certify!r}) {LATER}")
+        # the one option the port has no counterpart of is refused here,
+        # before the first trial (it is not reachable from a default plan)
         if plan.pipeline.compilation_cache_dir:
             raise NotImplementedError(
                 "pipeline.compilation_cache_dir configures jax's persistent "
@@ -367,6 +367,17 @@ class Orchestrator:
         # one per sync interval
         self._ci_engines: dict[tuple[int, str],
                                pipeline_mod.UntilCIEngine] = {}
+        # replay-safety certification (shrewd_tpu_torch/analysis/):
+        # audit every campaign step kind on its first dispatch; 'strict'
+        # refuses a violating step (exec_cache.AdmissionError) before its
+        # result is counted.  Installed process-wide — certification is a
+        # posture of the process's shared ledger
+        self.auditor = None
+        if plan.analysis.certify != "off":
+            from shrewd_tpu_torch import analysis as analysis_mod
+
+            self.auditor = analysis_mod.install_step_auditor(
+                plan.analysis.certify, plan.analysis.transfer_budget)
         # deterministic chaos harness (chaos.py): injected faults fire at
         # hook points in the watchdog/ladder/integrity/checkpoint paths
         self.chaos: chaosmod.ChaosEngine | None = None
@@ -617,10 +628,10 @@ class Orchestrator:
             "executables_certified",
             lambda: sum(1 for c in exec_cache.cache().certificates.values()
                         if c.get("ok")),
-            "certified executables (the port certifies none)")
+            "campaign steps whose replay-safety certificate passed")
         pg.executables_refused = statsmod.Formula(
             "executables_refused", lambda: exec_cache.cache().refused,
-            "executables refused admission (the port refuses none)")
+            "campaign steps refused by a strict certification")
         pg.exec_cache_keys = statsmod.Formula(
             "exec_cache_keys",
             lambda: exec_cache.cache().per_key_stats(),

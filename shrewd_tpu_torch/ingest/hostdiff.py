@@ -492,6 +492,9 @@ def run_device(trace, meta: dict, coords: np.ndarray,
     from shrewd_tpu_torch.utils.device import resolve
 
     dev = resolve(device)
+    # graftlint: allow-jit -- a memmap'd kernel keys by its memmap's
+    # identity (kernel_fingerprint), so a registry entry would never be
+    # shared; the differential run owns this one kernel
     k = TrialKernel(trace, O3Config(enable_shrewd=False), device=dev,
                     memmap=memmap_from_meta(meta, device=dev))
     faults = coord_faults(meta, coords, dev)
@@ -525,6 +528,8 @@ def run_device(trace, meta: dict, coords: np.ndarray,
                 src1=trace.src1[:cut], src2=trace.src2[:cut],
                 imm=trace.imm[:cut], taken=trace.taken[:cut],
                 init_reg=trace.init_reg, init_mem=trace.init_mem)
+            # graftlint: allow-jit -- a per-coordinate cut window with
+            # its own memmap: used once, never shared
             k_cut = TrialKernel(tr_cut, O3Config(enable_shrewd=False),
                                 device=dev,
                                 memmap=memmap_from_meta(meta, cut=cut,

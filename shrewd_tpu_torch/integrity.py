@@ -42,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 
 from shrewd_tpu_torch.obs import trace as obs_trace
+from shrewd_tpu_torch.parallel.exec_cache import AdmissionError
 from shrewd_tpu_torch.resilience import (DispatchResult, ResilientDispatcher,
                                    TIERS)
 from shrewd_tpu_torch.utils import debug
@@ -624,6 +625,8 @@ class CheckedDispatcher:
             try:
                 cres = self._battery.check(res.tier,
                                            self._tier_fn(res.tier))
+            except AdmissionError:
+                raise               # a certification refusal, not a wedge
             except Exception as e:  # noqa: BLE001 — a backend failure
                 # DURING the canary run (wedge, transient launch error) must
                 # degrade like any other dispatch failure, not crash the

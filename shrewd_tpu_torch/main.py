@@ -93,11 +93,19 @@ def _apply_resilience_overrides(orch, args) -> None:
     if getattr(args, "canary_trials", None) is not None:
         icfg.canary_trials = args.canary_trials
     if getattr(args, "certify", None):
-        if args.certify != "off":
-            raise NotImplementedError(
-                f"static certification (--certify {args.certify}) comes "
-                "with a later slice of the PyTorch port")
+        from shrewd_tpu_torch import analysis as analysis_mod
+        from shrewd_tpu_torch.parallel import exec_cache
+
         orch.plan.analysis.certify = args.certify   # reproducible dump
+        if args.certify == "off":
+            # an EXPLICIT off must disarm a plan-installed auditor, or
+            # the dumped config ('off') and the run's behavior (strict)
+            # would disagree — the reproducibility contract
+            exec_cache.clear_auditor()
+            orch.auditor = None
+        else:
+            orch.auditor = analysis_mod.install_step_auditor(
+                args.certify, orch.plan.analysis.transfer_budget)
     pcfg = orch.pcfg
     if getattr(args, "sync_every", None) is not None:
         pcfg.sync_every = args.sync_every
@@ -324,6 +332,8 @@ def cmd_trace(args) -> int:
                           count=args.n)
         _log(f"rendered {n} µops")
         return 0
+    # graftlint: allow-jit -- `trace` prints one window's golden record
+    # and exits: no campaign shares this kernel
     kern = TrialKernel(tr, O3Config(pallas="off"), device=_device(args))
     n = exec_trace(tr, kern.golden_rec, out=sys.stdout, start=args.start,
                    count=args.n)
@@ -436,9 +446,11 @@ def main(argv: list[str] | None = None) -> int:
                             "counted in campaign.obs.events_dropped)")
     resil.add_argument("--certify", default=None,
                        choices=("off", "warn", "strict"),
-                       help="static certification of compiled campaign "
-                            "steps (plan.analysis.certify; only 'off' "
-                            "in the port)")
+                       help="certify every campaign step kind on its "
+                            "first dispatch (the step auditor of "
+                            "shrewd_tpu_torch/analysis/): 'strict' "
+                            "refuses a violating step before its result "
+                            "is counted (plan.analysis.certify)")
 
     p = sub.add_parser("run", help="run a campaign plan to completion",
                        parents=[common, resil])

@@ -35,6 +35,7 @@ from shrewd_tpu_torch.models.tier import TierKernel
 from shrewd_tpu_torch.ops import classify as C
 from shrewd_tpu_torch.utils import prng
 from shrewd_tpu_torch.utils.config import ConfigObject, Param
+from shrewd_tpu_torch.utils.device import host_sync
 from shrewd_tpu_torch.utils.device import resolve as resolve_device
 
 # fault-type indices (same ten categories as FaultModel.hh:71-84)
@@ -504,13 +505,17 @@ class NocKernel(TierKernel):
         # the flow control instead of a static mapping
         is_pipe = torch.isin(ftype, torch.as_tensor(
             PIPELINE_TYPES, dtype=i64, device=self.device))
-        lanes = torch.nonzero(is_pipe).flatten()
+        # the pipeline-type lanes, compacted; the pipeline's own step loop
+        # reads its horizon and quiescence on the host
+        with host_sync("flit-pipeline"):
+            lanes = torch.nonzero(is_pipe).flatten()
         self.host_syncs += 1
         if lanes.numel():
             sub = NocFault(*(x[lanes] for x in f))
-            deliver, corrupt, steps, syncs = _flit_run(
-                self.msgs, self.cfg, sub, self._horizon,
-                tensors=(route, self._hops, self._depart, self._kind))
+            with host_sync("flit-pipeline"):
+                deliver, corrupt, steps, syncs = _flit_run(
+                    self.msgs, self.cfg, sub, self._horizon,
+                    tensors=(route, self._hops, self._depart, self._kind))
             self.pipeline_lanes += int(lanes.numel())
             self.pipeline_steps += steps
             self.host_syncs += syncs

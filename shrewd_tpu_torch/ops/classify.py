@@ -48,18 +48,26 @@ def classify(result: ReplayResult, golden: ReplayResult,
                       result.diverged | state_diff)
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Counts of each value of ``idx`` in [0, n), int32[n]: a scatter-add
+    into n bins (``torch.bincount`` reads the indices' minimum and maximum
+    on the host, two syncs on the card)."""
+    idx = idx.reshape(-1).to(torch.int64)
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx)).to(torch.int32)
+
+
 def tally(outcomes: torch.Tensor) -> torch.Tensor:
     """Outcome-class counts, int32[N_OUTCOMES]."""
-    return torch.bincount(outcomes.to(torch.int64),
-                          minlength=N_OUTCOMES).to(torch.int32)
+    return _counts(outcomes, N_OUTCOMES)
 
 
 def tally_stratified(outcomes: torch.Tensor, strata: torch.Tensor,
                      n_strata: int) -> torch.Tensor:
     """Per-stratum outcome counts, int32[n_strata, N_OUTCOMES]."""
     flat = strata.to(torch.int64) * N_OUTCOMES + outcomes.to(torch.int64)
-    return torch.bincount(flat, minlength=n_strata * N_OUTCOMES).to(
-        torch.int32).reshape(n_strata, N_OUTCOMES)
+    return _counts(flat, n_strata * N_OUTCOMES).reshape(n_strata,
+                                                        N_OUTCOMES)
 
 
 def avf(tallies: torch.Tensor) -> torch.Tensor:

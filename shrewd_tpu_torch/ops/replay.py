@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from shrewd_tpu_torch.isa import uops as U
+from shrewd_tpu_torch.utils.device import host_sync
 from shrewd_tpu_torch.models.o3 import (Fault, KIND_FU, KIND_IQ_SRC1,
                                         KIND_IQ_SRC2, KIND_LATCH_IMM,
                                         KIND_LATCH_OP, KIND_LSQ_ADDR,
@@ -69,7 +70,8 @@ class TraceArrays(NamedTuple):
     def host(self) -> list[tuple[int, ...]]:
         """Per-step (op, dst, src1, src2, imm, taken) as Python ints: one
         device→host copy, read by the step loops for uniform values."""
-        cols = torch.stack(list(self)).T.tolist()
+        with host_sync("trace-host"):
+            cols = torch.stack(list(self)).T.tolist()
         return [tuple(c) for c in cols]
 
 
@@ -344,11 +346,13 @@ class FaultPlan:
         self.entry = faults.entry.to(torch.int64)
         self.shadow_u = faults.shadow_u
         self.mask = faults.bit_as_index_mask()
-        kinds = self.kind.tolist()
-        self.flip_steps = {c for kd, c in zip(kinds, self.cycle.tolist())
+        with host_sync("fault-plan"):
+            kinds, cycles, entries = torch.stack(
+                [self.kind, self.cycle, self.entry]).tolist()
+        self.flip_steps = {c for kd, c in zip(kinds, cycles)
                            if kd == KIND_REGFILE}
         self.uop_steps: dict[int, set] = {}
-        for kd, e in zip(kinds, self.entry.tolist()):
+        for kd, e in zip(kinds, entries):
             if kd != KIND_REGFILE:
                 self.uop_steps.setdefault(kd, set()).add(e)
 
@@ -409,7 +413,8 @@ def replay(tr: TraceArrays, init_reg: torch.Tensor, init_mem: torch.Tensor,
     trapped = torch.zeros_like(live)
     diverged = torch.zeros_like(live)
     ftag = fp.entry & idx_mask
-    sc_host = shadow_cov.tolist()
+    with host_sync("shadow-cov"):
+        sc_host = shadow_cov.tolist()
     clu_host = None
     if memmap is not None:
         memmap = memmap.to(dev)

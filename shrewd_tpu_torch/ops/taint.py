@@ -40,6 +40,7 @@ from shrewd_tpu_torch.models.o3 import (Fault, KIND_FU, KIND_IQ_SRC1,
                                         KIND_LATCH_OP, KIND_LSQ_ADDR,
                                         KIND_LSQ_DATA, KIND_ROB_DST)
 from shrewd_tpu_torch.ops import classify as C
+from shrewd_tpu_torch.utils.device import host_sync
 from shrewd_tpu_torch.ops.replay import (FaultPlan, M32, TraceArrays,
                                          _accum, _alu, _alu_op, _and,
                                          _div_bad, _not, _or, _where, _xor,
@@ -69,9 +70,11 @@ class GoldenRecord(NamedTuple):
     def host(self) -> list[tuple]:
         """Per-step (a, b, ea, res, st_old, dst_old, wr, ld, st) as Python
         values — one device→host copy for the step loops."""
-        cols = torch.stack([self.a, self.b, self.ea, self.res, self.st_old,
-                            self.dst_old, self.wr.long(), self.is_ld.long(),
-                            self.is_st.long()]).T.tolist()
+        with host_sync("golden-host"):
+            cols = torch.stack([self.a, self.b, self.ea, self.res,
+                                self.st_old, self.dst_old, self.wr.long(),
+                                self.is_ld.long(),
+                                self.is_st.long()]).T.tolist()
         return [tuple(c[:6]) + (bool(c[6]), bool(c[7]), bool(c[8]))
                 for c in cols]
 
@@ -324,7 +327,8 @@ def _scan_deviation(gold: GoldenRecord, tr: TraceArrays, faults: Fault,
     escaped = torch.zeros_like(live)
     overflowed = torch.zeros_like(live)
     steps = torch.full((B,), tr.n, dtype=torch.int32, device=dev)
-    sc_host = shadow_cov.tolist()
+    with host_sync("shadow-cov"):
+        sc_host = shadow_cov.tolist()
 
     for i, ((op0, dstr, s1, s2, imm0, tk),
             (g_a, g_b, g_ea, g_res, g_st_old, g_dst_old, g_wr, g_ld, g_st)) \

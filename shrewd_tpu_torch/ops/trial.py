@@ -50,6 +50,7 @@ from shrewd_tpu_torch.ops.taint import (TaintResult, fault_setup,
                                         taint_replay)
 from shrewd_tpu_torch.ops.taint_cuda import pack_stream, taint_fast_cuda
 from shrewd_tpu_torch.trace.format import Trace
+from shrewd_tpu_torch.utils.device import host_sync
 from shrewd_tpu_torch.utils.device import resolve as resolve_device
 
 # strata count for the post-stratified tally: the 7 OpClasses and 8 cycle
@@ -114,6 +115,9 @@ class TrialKernel:
             cfg.enable_shrewd = enable
         if priority_to_shadow is not None:
             cfg.priority_to_shadow = priority_to_shadow
+        # graftlint: allow-jit -- a toggled copy of this kernel for the
+        # caller to hold (the reference's runtime setters), not a
+        # campaign's kernel of a window
         return TrialKernel(self.trace, cfg, self.minor_cfg,
                            device=self.device, memmap=self.memmap)
 
@@ -127,6 +131,8 @@ class TrialKernel:
             return self
         key = str(torch.device(device))
         if key not in self._replicas:
+            # graftlint: allow-jit -- the per-device replica of a mesh
+            # shard, cached on this kernel, which the registry holds
             self._replicas[key] = TrialKernel(self.trace, self.cfg,
                                               self.minor_cfg, device=device,
                                               memmap=self.memmap)
@@ -138,7 +144,8 @@ class TrialKernel:
     def golden(self) -> ReplayResult:
         """The fault-free dense replay (a batch of one), recorded once."""
         if self._golden is None:
-            self._golden = self._replay(null_fault(self.device))
+            with host_sync("golden-record"):
+                self._golden = self._replay(null_fault(self.device))
         return self._golden
 
     def _replay(self, faults: Fault) -> ReplayResult:
@@ -200,9 +207,10 @@ class TrialKernel:
                 self.trace.nphys
             with_mem_t = n * mw * 4 <= self.cfg.taint_mem_timeline_mb << 20
             with_reg_t = n * nphys * 4 <= self.cfg.taint_reg_timeline_mb << 20
-            self._golden_rec = record_golden(
-                self.tr, self.init_reg, self.init_mem, with_mem_t,
-                reg_timeline=with_reg_t)
+            with host_sync("golden-record"):
+                self._golden_rec = record_golden(
+                    self.tr, self.init_reg, self.init_mem, with_mem_t,
+                    reg_timeline=with_reg_t)
         return self._golden_rec
 
     @property
@@ -211,8 +219,9 @@ class TrialKernel:
         (``ops/taint_cuda.py pack_stream``), packed on first use; None on
         the CPU, where the fast pass is the plain scan."""
         if self._stream is None and self.device.type == "cuda":
-            self._stream = pack_stream(self.golden_rec, self.tr,
-                                       self.shadow_cov)
+            with host_sync("golden-record"):
+                self._stream = pack_stream(self.golden_rec, self.tr,
+                                           self.shadow_cov)
         return self._stream
 
     def _setup_batch(self, faults: Fault):
@@ -341,7 +350,9 @@ class TrialKernel:
                           res.outcome).to(torch.int32)
         budget = min(self.cfg.escape_budget, int(keys.shape[0]))
         if self.cfg.replay_kernel == "hybrid" and budget:
-            idx = torch.nonzero(unresolved).flatten()[:budget]
+            # the escaped lanes, compacted for the exact re-run
+            with host_sync("escape-rerun"):
+                idx = torch.nonzero(unresolved).flatten()[:budget]
             if idx.numel():
                 out[idx] = self.run_batch(faults.index(idx))
         return out, faults, n_unres

@@ -49,6 +49,17 @@ on a single process.  The batch step itself still syncs inside (the fast
 pass's escape compaction), so dispatch returns once the device work is
 done and the watchdog's deadline, armed at dispatch, is enforced at
 materialization by waiting on a CUDA event.
+
+Every step copies its result to the host ONCE (``_to_host``, the result
+seam of ``utils/device.py``): the batch step its shards' tallies, the
+interval step its accumulators, the until-CI step its accumulators with
+the half-width trace.  Its other host reads are designed control reads,
+each marked with ``host_sync(reason)``.  With an auditor installed
+(``parallel/exec_cache.py install_auditor``) the first dispatch of each
+step kind (batch, stratified batch, interval with its S, until-CI with its
+S and rule) is certified first (``analysis/step_audit.py``): the step runs
+once under the auditor, and a strict refusal raises before the batch's
+result reaches a tally.
 """
 
 from __future__ import annotations
@@ -63,11 +74,12 @@ import torch
 
 from shrewd_tpu_torch.ops import classify as C
 from shrewd_tpu_torch.ops.trial import N_STRATA
-from shrewd_tpu_torch.parallel import stopping
+from shrewd_tpu_torch.parallel import exec_cache, stopping
 from shrewd_tpu_torch.parallel.mesh import (make_mesh, shard_batch_stack,
                                             shard_keys)
 from shrewd_tpu_torch.resilience import TIERS, DispatchTimeout
 from shrewd_tpu_torch.utils import debug, prng
+from shrewd_tpu_torch.utils import device as devmod
 
 debug.register_flag("CampaignStep", "per-batch campaign steps")
 
@@ -134,11 +146,12 @@ class ShardedCampaign:
         # deadlines on a device step: in a multi-process mesh the step is
         # a collective, and a deadline may mean a lost peer
         self.collective_timeouts = 0
-        # device→host copies made by this campaign's steps (a shard's
-        # tally with its unresolved count is one copy; the until-CI step
-        # adds one per stop-flag read): PerfStats.host_roundtrips_saved
-        # reads it
+        # device→host copies made by this campaign's steps (one result
+        # copy per step; the until-CI step adds one per stop-flag read):
+        # PerfStats.host_roundtrips_saved reads it
         self.transfers = 0
+        # step kinds (with their flags) already through the ledger's audit
+        self._audited: set = set()
         self.mode = getattr(getattr(kernel, "cfg", None),
                             "replay_kernel", "dense")
 
@@ -201,10 +214,13 @@ class ShardedCampaign:
         if len(groups) == 1:
             return [fn(i, x) for i, x in enumerate(items)]
         out = [None] * len(items)
+        # an audit watching this thread watches the shards' threads too
+        obs = devmod.observer()
 
         def run(dev, idx):
-            with (torch.cuda.device(dev) if dev.type == "cuda"
-                  else contextlib.nullcontext()):
+            with devmod.worker_context(obs), (
+                    torch.cuda.device(dev) if dev.type == "cuda"
+                    else contextlib.nullcontext()):
                 for i in idx:
                     out[i] = fn(i, items[i])
 
@@ -261,22 +277,55 @@ class ShardedCampaign:
         self._count(n_unres, n_trials)
         return total.astype(np.int32)
 
+    # --- certification ----------------------------------------------------
+
+    def _audit(self, kind: str, step, args: tuple, **flags) -> None:
+        """The first dispatch of a step kind goes through the ledger's
+        audit (``exec_cache.KernelLedger.audit``) when an auditor is
+        installed; a strict refusal raises ``AdmissionError`` here, before
+        the step runs for real."""
+        if exec_cache.current_auditor() is None:
+            return
+        tag = (kind, tuple(sorted(flags.items())))
+        if tag in self._audited:
+            return
+        exec_cache.cache().audit(
+            exec_cache.step_key(self.kernel, self.mesh, self.structure,
+                                kind, mode=self.mode,
+                                resolution=self.resolution,
+                                integrity=self.integrity_check, **flags),
+            step, args)
+        self._audited.add(tag)
+
     # --- the per-batch steps ----------------------------------------------
+
+    def _build_batch_step(self, stratified: bool):
+        """The budgeted (or dense) batch step: keys (B, 2) → (the local
+        shards' int32 tallies stacked, their int32 unresolved counts), in
+        one copy to the host."""
+        def step(keys):
+            res = self._on_shards(
+                lambda i, s: self.kernels[i].tally_on_device(
+                    s, self.structure, stratified=stratified),
+                shard_keys(self.mesh, keys))
+            dev0 = self.mesh.devices[0]
+            return _to_host(torch.stack([t.to(dev0) for t, _ in res]),
+                            torch.stack([n.reshape(()).to(dev0)
+                                         for _, n in res]))
+        return step
 
     def _device_tally(self, keys: torch.Tensor, stratified: bool):
         """The budgeted (or dense) tally of one batch, per shard on its
         device, reduced inside the watchdog's deadline → int32 numpy."""
-        shards = shard_keys(self.mesh, keys)
+        step = self._build_batch_step(stratified)
+        self._audit("strat_batch" if stratified else "batch", step, (keys,))
 
         def work():
-            host = self._on_shards(
-                lambda i, s: _to_host(*self.kernels[i].tally_on_device(
-                    s, self.structure, stratified=stratified)), shards)
-            return self._reduce(np.stack([t for t, _ in host]),
-                                sum(nu for _, nu in host))
+            tallies, nus = step(keys)
+            return self._reduce(tallies, int(nus.sum()))
 
         reduced = self._dispatch(work)
-        self.transfers += len(shards)
+        self.transfers += 1
         return self._believe(reduced, int(keys.shape[0]))
 
     def tally_batch_stratified(self, keys: torch.Tensor) -> torch.Tensor:
@@ -323,8 +372,11 @@ class ShardedCampaign:
             k = self.kernels[i]
             r = k.taint_fast(k.sample_batch(s, structure),
                              may_latch=structure == "latch")
-            return (r.outcome.cpu().numpy(), r.escaped.cpu().numpy(),
-                    r.overflow.cpu().numpy())
+            # the route resolves escapes on the host: its fast-pass
+            # outcomes come back whole
+            with devmod.host_sync("host-resolution"):
+                return (r.outcome.cpu().numpy(), r.escaped.cpu().numpy(),
+                        r.overflow.cpu().numpy())
 
         def work():
             res = self._on_shards(shard, shards)
@@ -387,33 +439,40 @@ class ShardedCampaign:
             acc = acc + p.to(dev0)
         return acc
 
-    def _fetch(self, handle: "InflightInterval"):
-        """Wait for the step's device work and copy its outputs to the
-        host (runs inside the watchdog's thread when one is set): the
-        summed accumulator with its unresolved count in one copy, the
-        until-CI step's half-width buffer in a second, and, under the
-        integrity check on more than one shard, the shards' own
-        accumulators."""
-        events = handle.event
+    def _collect(self, out: tuple, locals_: list, events):
+        """Wait for a multi-batch step's device work and copy its outputs
+        to the host in ONE copy: the summed accumulator, its unresolved
+        count, under the integrity check on more than one shard the
+        shards' own accumulators, and the until-CI step's half-width
+        buffer → (acc, n_unres, locals | None[, consumed, hw_buf,
+        stop-flag reads])."""
         for ev in (events if isinstance(events, list)
                    else [events] if events is not None else []):
             ev.synchronize()
-        acc, nu, *rest = handle.out
-        acc, nu = _to_host(acc, nu)
-        self.transfers += 1
-        locals_ = None
-        if self.integrity_check:
-            if len(handle.locals) == 1:
-                locals_ = acc[None].astype(np.int64)
-            else:
-                locals_ = np.stack([t.cpu().numpy() for t in handle.locals]
-                                   ).astype(np.int64)
-                self.transfers += len(handle.locals)
+        acc, nu, *rest = out
+        parts = [acc, nu]
+        many = self.integrity_check and len(locals_) > 1
+        if many:
+            dev0 = self.mesh.devices[0]
+            parts.append(torch.stack([t.to(dev0) for t in locals_]))
         if rest:
-            consumed, hw_buf = rest
-            self.transfers += 1
-            return acc, nu, locals_, consumed, hw_buf.cpu().numpy()
-        return acc, nu, locals_
+            parts.append(rest[1])
+        host = _to_host(*parts)
+        acc, nu = host[0], int(host[1])
+        locals_h = None
+        if self.integrity_check:
+            locals_h = (host[2] if many else acc[None]).astype(np.int64)
+        if rest:
+            consumed, _, flags = rest
+            return acc, nu, locals_h, consumed, host[-1], flags
+        return acc, nu, locals_h
+
+    def _fetch(self, handle: "InflightInterval"):
+        """``_collect`` of a dispatched step (runs inside the watchdog's
+        thread when one is set), counted as one transfer."""
+        got = self._collect(handle.out, handle.locals, handle.event)
+        self.transfers += 1
+        return got
 
     def dispatch_interval(self, keys_list) -> "InflightInterval":
         """One sync interval (len(keys_list) batches): each shard's batch
@@ -428,8 +487,17 @@ class ShardedCampaign:
                              "sync-interval accumulation")
         S = len(keys_list)
         B = int(keys_list[0].shape[0])
+        self._audit("interval", self._build_interval_step(S), (keys_list,),
+                    S=S, B=B, stratify=self.stratify)
         armed_at = self._arm()
+        out, locals_, event = self._guarded_dispatch(
+            lambda: self._interval_work(keys_list), S)
+        return InflightInterval(out, armed_at, S, S * B, event, locals_)
 
+    def _interval_work(self, keys_list):
+        """The dispatch side of the interval step: each shard's batch
+        tallies accumulated on its device, the shards' accumulators summed
+        on the first mesh device → (out, locals, event)."""
         def shard(i, shard_batches):
             acc = nu = None
             for keys in shard_batches:
@@ -439,16 +507,20 @@ class ShardedCampaign:
                 nu = n if nu is None else nu + n
             return acc, nu
 
-        def dispatch_work():
-            res = self._on_shards(shard,
-                                  shard_batch_stack(self.mesh, keys_list))
-            locals_ = [acc for acc, _ in res]
-            out = (self._sum_shards(locals_),
-                   self._sum_shards([nu for _, nu in res]))
-            return out, locals_, self._event()
+        res = self._on_shards(shard, shard_batch_stack(self.mesh, keys_list))
+        locals_ = [acc for acc, _ in res]
+        out = (self._sum_shards(locals_),
+               self._sum_shards([nu for _, nu in res]))
+        return out, locals_, self._event()
 
-        out, locals_, event = self._guarded_dispatch(dispatch_work, S)
-        return InflightInterval(out, armed_at, S, S * B, event, locals_)
+    def _build_interval_step(self, S: int):
+        """The interval step whole, dispatch and copy: keys_list (S
+        batches) → ``_collect``'s host tuple."""
+        def step(keys_list):
+            if len(keys_list) != S:
+                raise ValueError(f"interval step built for {S} batches")
+            return self._collect(*self._interval_work(keys_list))
+        return step
 
     def materialize_interval(self, handle: "InflightInterval",
                              timeout: float | None = None):
@@ -497,58 +569,85 @@ class ShardedCampaign:
                              "campaign")
         S = len(keys_list)
         B = int(keys_list[0].shape[0])
+        args = (keys_list, initial_tallies, initial_strata, trials0,
+                min_trials, target_halfwidth, confidence)
+        self._audit("until_ci", self._build_until_ci_step(S, strat_rule),
+                    args, S=S, B=B, stratify=self.stratify,
+                    rule="strat" if strat_rule else "pooled")
         armed_at = self._arm()
-        dev = self.mesh.devices[0]
+        out, locals_, event = self._guarded_dispatch(
+            lambda: self._until_ci_work(*args, strat_rule=strat_rule), S)
+        return InflightInterval(out, armed_at, S, S * B, event, locals_)
 
-        def dispatch_work():
-            per_shard = shard_batch_stack(self.mesh, keys_list)
-            tal0 = torch.as_tensor(np.asarray(initial_tallies, np.int64),
-                                   dtype=torch.int32, device=dev)
-            if self.stratify:
-                s0 = (np.zeros((N_STRATA, C.N_OUTCOMES), np.int64)
-                      if initial_strata is None
-                      else np.asarray(initial_strata))
-                strat0 = torch.as_tensor(s0, dtype=torch.int32, device=dev)
-            z = torch.tensor(stopping.z_value(float(confidence)),
-                             dtype=torch.float32, device=dev)
-            target = torch.tensor(float(target_halfwidth),
-                                  dtype=torch.float32, device=dev)
-            hw_buf = torch.full((S,), float("nan"), dtype=torch.float32,
-                                device=dev)
-            locals_ = [None] * len(self.kernels)
-            acc = nu = None
-            consumed = 0
-            for i in range(S):
-                res = self._on_shards(
-                    lambda j, batches: self.kernels[j].tally_on_device(
-                        batches[i], self.structure, stratified=self.stratify),
-                    per_shard)
-                for j, (t, _) in enumerate(res):
-                    locals_[j] = t if locals_[j] is None else locals_[j] + t
-                t = self._sum_shards([t for t, _ in res])
-                n = self._sum_shards([n for _, n in res])
-                acc = t if acc is None else acc + t
-                nu = n if nu is None else nu + n
-                consumed = i + 1
-                trials = int(trials0) + consumed * B
-                if strat_rule:
-                    hw = stopping.post_stratified_halfwidth_device(
-                        strat0 + acc, z)
-                else:
-                    cum = tal0 + (acc.sum(dim=0) if self.stratify else acc)
-                    hw = stopping.wilson_halfwidth_device(
-                        cum[C.OUTCOME_SDC] + cum[C.OUTCOME_DUE],
-                        torch.tensor(trials, dtype=torch.int32,
-                                     device=dev), z)
-                hw_buf[i] = hw
-                if trials >= int(min_trials):
-                    self.transfers += 1          # the stop flag
+    def _until_ci_work(self, keys_list, initial_tallies, initial_strata,
+                       trials0: int, min_trials: int,
+                       target_halfwidth: float, confidence: float, *,
+                       strat_rule: bool):
+        """The dispatch side of the until-CI step → (out, locals, event);
+        ``out`` ends with the batches consumed, the half-width buffer and
+        the stop-flag reads made."""
+        S = len(keys_list)
+        B = int(keys_list[0].shape[0])
+        dev = self.mesh.devices[0]
+        per_shard = shard_batch_stack(self.mesh, keys_list)
+        tal0 = torch.as_tensor(np.asarray(initial_tallies, np.int64),
+                               dtype=torch.int32, device=dev)
+        if self.stratify:
+            s0 = (np.zeros((N_STRATA, C.N_OUTCOMES), np.int64)
+                  if initial_strata is None
+                  else np.asarray(initial_strata))
+            strat0 = torch.as_tensor(s0, dtype=torch.int32, device=dev)
+        z = torch.tensor(stopping.z_value(float(confidence)),
+                         dtype=torch.float32, device=dev)
+        target = torch.tensor(float(target_halfwidth),
+                              dtype=torch.float32, device=dev)
+        # the cumulative trial count after each batch, made on the device
+        trials_dev = (torch.arange(1, S + 1, dtype=torch.int64, device=dev)
+                      * B + int(trials0)).to(torch.int32)
+        hw_buf = torch.full((S,), float("nan"), dtype=torch.float32,
+                            device=dev)
+        locals_ = [None] * len(self.kernels)
+        acc = nu = None
+        consumed = flags = 0
+        for i in range(S):
+            res = self._on_shards(
+                lambda j, batches: self.kernels[j].tally_on_device(
+                    batches[i], self.structure, stratified=self.stratify),
+                per_shard)
+            for j, (t, _) in enumerate(res):
+                locals_[j] = t if locals_[j] is None else locals_[j] + t
+            t = self._sum_shards([t for t, _ in res])
+            n = self._sum_shards([n for _, n in res])
+            acc = t if acc is None else acc + t
+            nu = n if nu is None else nu + n
+            consumed = i + 1
+            trials = int(trials0) + consumed * B
+            if strat_rule:
+                hw = stopping.post_stratified_halfwidth_device(
+                    strat0 + acc, z)
+            else:
+                cum = tal0 + (acc.sum(dim=0) if self.stratify else acc)
+                hw = stopping.wilson_halfwidth_device(
+                    cum[C.OUTCOME_SDC] + cum[C.OUTCOME_DUE],
+                    trials_dev[i], z)
+            hw_buf[i] = hw
+            if trials >= int(min_trials):
+                flags += 1
+                with devmod.host_sync("stop-flag"):
                     if bool(hw <= target):
                         break
-            return (acc, nu, consumed, hw_buf), locals_, self._event()
+        return (acc, nu, consumed, hw_buf, flags), locals_, self._event()
 
-        out, locals_, event = self._guarded_dispatch(dispatch_work, S)
-        return InflightInterval(out, armed_at, S, S * B, event, locals_)
+    def _build_until_ci_step(self, S: int, strat_rule: bool):
+        """The until-CI step whole, dispatch and copy: (keys_list,
+        initial_tallies, initial_strata, trials0, min_trials,
+        target_halfwidth, confidence) → ``_collect``'s host tuple."""
+        def step(keys_list, *state):
+            if len(keys_list) != S:
+                raise ValueError(f"until-CI step built for {S} batches")
+            return self._collect(*self._until_ci_work(
+                keys_list, *state, strat_rule=strat_rule))
+        return step
 
     def materialize_until_ci(self, handle: "InflightInterval",
                              timeout: float | None = None):
@@ -558,8 +657,9 @@ class ShardedCampaign:
         hw_trace float32 (consumed,)).  Escape counters update from the
         consumed batch count, and the shard-vs-sum invariant is verified
         on the accumulators exactly like the interval path."""
-        acc, n_unres, locals_, consumed, hw_buf = self._guarded_fetch(
-            lambda: self._fetch(handle), handle, timeout)
+        acc, n_unres, locals_, consumed, hw_buf, flags = \
+            self._guarded_fetch(lambda: self._fetch(handle), handle, timeout)
+        self.transfers += flags
         consumed = int(consumed)
         strata = None
         if self.stratify:
@@ -574,12 +674,24 @@ class ShardedCampaign:
         return tally, strata, consumed, np.asarray(hw_buf)[:consumed]
 
 
-def _to_host(tally: torch.Tensor, n_unres: torch.Tensor):
-    """One device→host copy of a tally and its unresolved count →
-    (int32 numpy tally of the same shape, int)."""
-    flat = torch.cat([tally.reshape(-1).to(torch.int32),
-                      n_unres.reshape(1).to(torch.int32)]).cpu().numpy()
-    return flat[:-1].reshape(tuple(tally.shape)), int(flat[-1])
+def _to_host(*parts: torch.Tensor) -> list:
+    """ONE device→host copy of a step's results, the campaign's result
+    seam: integer tensors as int32, float32 ones as their bits, all
+    concatenated on the first one's device → numpy arrays of the parts'
+    shapes (int32, or float32 bit for bit)."""
+    dev = parts[0].device
+    flat = torch.cat([
+        (p.view(torch.int32) if p.dtype == torch.float32
+         else p.to(torch.int32)).to(dev).reshape(-1) for p in parts])
+    with devmod.result_copy():
+        host = flat.cpu().numpy()
+    out, pos = [], 0
+    for p in parts:
+        n = p.numel()
+        a = host[pos:pos + n].reshape(tuple(p.shape))
+        out.append(a.view(np.float32) if p.dtype == torch.float32 else a)
+        pos += n
+    return out
 
 
 class InflightInterval(NamedTuple):

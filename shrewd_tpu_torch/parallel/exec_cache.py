@@ -14,8 +14,17 @@ serve every orchestrator of the process.
 ``cache()`` is the ledger of that registry, under the reference's counter
 names so the ``campaign.perf`` stats keep theirs: ``compiled`` counts
 kernels built, ``reused`` registry hits, ``per_key_stats()`` both per
-kernel key; nothing is certified or refused.  The digest also keys the
-preprocessed-window registry (``ops/window.py``).
+kernel key.  The digest also keys the preprocessed-window registry
+(``ops/window.py``).
+
+The ledger is also where campaign steps are certified.  With an auditor
+installed (``install_auditor``; ``analysis.install_step_auditor`` under
+``plan.analysis.certify``), ``ShardedCampaign`` sends the first dispatch of
+each step kind, keyed by ``step_key``, through ``KernelLedger.audit``: the
+auditor (``analysis/step_audit.py StepAuditor``) runs the step once and
+returns its certificate, which the ledger keeps in ``certificates``; a
+strict refusal raises ``AdmissionError``, counts in ``refused`` and stays
+refused for its key.
 """
 
 from __future__ import annotations
@@ -39,6 +48,37 @@ _TRACE_FIELDS = ("opcode", "dst", "src1", "src2", "imm", "taken",
                  "init_reg", "init_mem")
 
 
+class AdmissionError(RuntimeError):
+    """A strict-mode replay-safety audit refused this campaign step (see
+    ``.certificate`` for the evidence)."""
+
+    def __init__(self, msg: str, certificate: dict | None = None):
+        super().__init__(msg)
+        self.certificate = certificate or {}
+
+
+# the installed auditor (analysis/step_audit.StepAuditor or compatible):
+# ``auditor(fn, example_args, key) -> certificate dict``, raising to refuse
+# the step.  None (the default) audits nothing.
+_AUDITOR = None
+
+
+def install_auditor(auditor) -> None:
+    """Certify the first dispatch of every campaign step kind from now on
+    (certificates in ``cache().certificates``)."""
+    global _AUDITOR
+    _AUDITOR = auditor
+
+
+def clear_auditor() -> None:
+    global _AUDITOR
+    _AUDITOR = None
+
+
+def current_auditor():
+    return _AUDITOR
+
+
 class KernelLedger:
     """Counters of the shared kernel registry, named as the reference's
     executable-cache counters (``campaign.perf.executables_*``)."""
@@ -47,13 +87,55 @@ class KernelLedger:
         self.compiled = 0        # kernels built (registry misses)
         self.reused = 0          # registry hits
         self.evicted = 0
-        self.refused = 0         # the port certifies nothing: always 0
-        self.certificates: dict = {}
+        self.refused = 0         # strict-mode refusals of campaign steps
+        # step key digest -> the step's replay-safety certificate
+        self.certificates: dict[str, dict] = {}
+        # step key digest -> its refusal: a refused step stays refused
+        self._refusals: dict[str, AdmissionError] = {}
         self.key_stats: dict[str, dict] = {}
 
     def _key_stat(self, key) -> dict:
         return self.key_stats.setdefault(
             key_digest(key), {"hits": 0, "misses": 0, "evictions": 0})
+
+    def audit(self, key, fn, example_args: tuple):
+        """Certify the step ``key`` with the installed auditor (once per
+        key) → its certificate, or None without an auditor.  Only the
+        auditor's own refusal (an error carrying its certificate) becomes
+        ``AdmissionError``, and the key stays refused; an auditor that
+        crashed proves nothing, so its failure is kept as an ``ok: False``
+        certificate with ``audit_error`` and the step runs."""
+        auditor = _AUDITOR
+        if auditor is None:
+            return None
+        d = key_digest(key)
+        if d in self._refusals:
+            raise self._refusals[d]
+        if d in self.certificates:
+            return self.certificates[d]
+        kind = str(key[0]) if key else "step"
+        try:
+            cert = auditor(fn, example_args, key)
+        except AdmissionError as e:
+            self.refused += 1
+            self._refusals[d] = e
+            raise
+        except Exception as e:  # noqa: BLE001
+            if hasattr(e, "certificate"):
+                # the auditor's own refusal type (CertificationError):
+                # normalize so callers see one refusal type
+                self.refused += 1
+                err = AdmissionError(
+                    f"campaign step refused by replay-safety audit: {e}",
+                    e.certificate)
+                self._refusals[d] = err
+                raise err from e
+            debug.dprintf("ExecCache", "audit of %s errored (%s) — "
+                          "running it unaudited", kind, e)
+            cert = {"kind": kind, "ok": False, "audit_error": str(e),
+                    "violations": []}
+        self.certificates[d] = cert
+        return cert
 
     def stats(self) -> dict:
         """The counters as the reference's ``ExecutableCache.stats()``
@@ -68,6 +150,8 @@ class KernelLedger:
 
     def clear(self) -> None:
         self.key_stats.clear()
+        self.certificates.clear()
+        self._refusals.clear()
 
 
 _LEDGER = KernelLedger()

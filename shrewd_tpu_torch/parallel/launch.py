@@ -113,6 +113,8 @@ def run_campaign_batch(args, devices) -> tuple:
         n=args.uops, nphys=32, mem_words=64, working_set_words=32,
         seed=args.seed))
     mesh = make_mesh(devices)
+    # graftlint: allow-jit -- one kernel per launched worker process:
+    # nothing in the process could share it
     kernel = TrialKernel(trace, O3Config(escape_budget=ESCAPE_BUDGET),
                          device=mesh.devices[0])
     camp = ShardedCampaign(kernel, mesh, "regfile", integrity_check=True)

@@ -43,6 +43,7 @@ import numpy as np
 from shrewd_tpu_torch import resilience as resil
 from shrewd_tpu_torch.obs import clock as obs_clock
 from shrewd_tpu_torch.obs import trace as obs_trace
+from shrewd_tpu_torch.parallel.exec_cache import AdmissionError
 from shrewd_tpu_torch.utils import debug
 from shrewd_tpu_torch.utils.config import ConfigObject, Param
 
@@ -340,6 +341,10 @@ class PipelinedEngine:
                 "interval_inflight", cat="dispatch", ph="E",
                 sp=self.sp_name, structure=self.structure,
                 b0=int(b0), k=int(k))
+        except AdmissionError:
+            # a strict certification refusal is a verdict on the step,
+            # not a device failure: no serial recovery
+            raise
         except Exception as e:  # noqa: BLE001 — wedge, backend crash,
             # shard-sum mismatch: every dispatch/materialization failure
             # recovers through the serial per-batch ladder on frozen keys
@@ -492,6 +497,10 @@ class UntilCIEngine:
                 "super_interval_inflight", cat="dispatch", ph="E",
                 sp=self.sp_name, structure=self.structure,
                 b0=int(b0), k=int(S), consumed=int(consumed))
+        except AdmissionError:
+            # a strict certification refusal is a verdict on the step,
+            # not a device failure: no serial recovery
+            raise
         except Exception as e:  # noqa: BLE001 — wedge, backend crash,
             # shard-sum mismatch: recover serially on frozen keys with
             # the host stopping rule deciding where to stop

@@ -533,13 +533,17 @@ def _device_tier(campaign):
     ``BackendError`` so the ladder descends; on the card it propagates."""
     on_card = campaign.kernel.device.type == "cuda"
 
+    from shrewd_tpu_torch.parallel.exec_cache import AdmissionError
+
     def fn(keys, stratified):
         try:
             if stratified:
                 strata = np.asarray(campaign.tally_batch_stratified(keys))
                 return strata.sum(axis=0), strata
             return np.asarray(campaign.tally_batch(keys)), None
-        except BackendError:
+        except (BackendError, AdmissionError):
+            # a certification refusal is a verdict on the step: the
+            # ladder must not descend past it
             raise
         except Exception as e:  # noqa: BLE001 — a crashing backend (out
             # of memory, a failing host step) is the other common failure

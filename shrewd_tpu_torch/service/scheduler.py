@@ -12,15 +12,13 @@ registry (``parallel/exec_cache``) shares one ``TrialKernel`` between
 tenants on one window — the second tenant on a shared window builds no
 new kernel (its ledger's ``compiled`` stays put).
 
-Two departures from the reference, each refused or dropped here:
-
-- a non-empty ``certify=`` raises ``NotImplementedError``: the port has
-  no static certification yet (the analysis re-scope), exactly as its
-  ``Orchestrator`` refuses ``analysis.certify`` other than ``"off"``;
-- the reference's fleet points jax's persistent compilation cache at a
-  shared artifact store (``exec_cache.enable_persistent_cache``); the
-  port compiles nothing per step, so there is nothing to persist and
-  the call is dropped.
+A non-empty ``certify=`` is the fleet's certification floor: it tightens
+each tenant's ``plan.analysis.certify``, so every tenant's campaign steps
+are certified on their first dispatch (``analysis/step_audit.py``), as in
+the reference.  One departure from the reference is dropped here: the
+reference's fleet points jax's persistent compilation cache at a shared
+artifact store (``exec_cache.enable_persistent_cache``); the port compiles
+nothing per step, so there is nothing to persist.
 
 Scheduling is deterministic by construction: policies consume only
 admission order, per-tenant trial counts and weights — never wall clock
@@ -220,12 +218,6 @@ class CampaignScheduler:
             raise ValueError(f"unknown policy {policy!r} (one of {POLICIES})")
         if certify and certify not in _CERTIFY_ORDER:
             raise ValueError(f"unknown certify mode {certify!r}")
-        if certify:
-            # departure: admission-time certification needs the static
-            # analysis layer, which the port does not have yet
-            raise NotImplementedError(
-                f"fleet certification (certify={certify!r}) comes with "
-                "the port's analysis layer")
         self.outdir = outdir
         self._mesh = mesh
         self.depth_budget = max(1, int(depth_budget))
@@ -537,6 +529,12 @@ class CampaignScheduler:
             plan = CampaignPlan.from_dict(self._ingest_plan(t))
         else:
             plan = t.spec.build_plan()
+        if self.certify and (_CERTIFY_ORDER[self.certify]
+                             > _CERTIFY_ORDER.get(plan.analysis.certify, 0)):
+            # admission-time certification: the fleet's posture tightens
+            # the tenant's — its campaign steps are audited on their
+            # first dispatch before their results are counted
+            plan.analysis.certify = self.certify
         outdir = self.tenant_outdir(t.spec.name)
         ckpt_dir = (os.path.join(outdir, "campaign_ckpt") if outdir
                     else None)
@@ -550,6 +548,12 @@ class CampaignScheduler:
         if resumable:
             t.orch = Orchestrator.resume(ckpt_dir, mesh=self.mesh,
                                          outdir=outdir)
+            # the fleet posture must hold on resume too (resume rebuilds
+            # the plan from the checkpoint document)
+            if self.certify:
+                t.orch.plan.analysis.certify = max(
+                    (t.orch.plan.analysis.certify, self.certify),
+                    key=lambda m: _CERTIFY_ORDER.get(m, 0))
         else:
             t.orch = Orchestrator(plan, mesh=self.mesh, outdir=outdir)
         self._scope_chaos(t)

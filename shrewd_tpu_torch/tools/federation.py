@@ -3,8 +3,8 @@
 ``tools/federation.py``, with its flags), run as
 ``python -m shrewd_tpu_torch.tools.federation``.  Every pod runs its
 tenants on the card unless ``--platform cpu`` asks for the CPU;
-``--certify`` with a value exits rc 2 (the port has no static
-certification yet).
+``--certify warn|strict`` is the certification floor every pod applies
+(``shrewd_tpu_torch/analysis/``).
 
 Modes:
 
@@ -132,6 +132,8 @@ def cmd_run(a) -> int:
                   expiry_rounds=a.expiry_rounds,
                   rebalance_every=a.rebalance_every,
                   idle_exit=not a.serve)
+        if a.certify:
+            kw["certify"] = a.certify
         if a.recover:
             fed = Federation.recover(a.recover,
                                      pod_names=_pod_names(a.pods), **kw)
@@ -201,8 +203,8 @@ def main(argv=None) -> int:
                          "checks (0 = off)")
     ap.add_argument("--certify", default="",
                     choices=["", "off", "warn", "strict"],
-                    help="admission-time certification floor (not in "
-                         "the port yet: any value exits rc 2)")
+                    help="admission-time certification floor applied "
+                         "by every pod")
     ap.add_argument("--chaos-plan", default=None,
                     help="federation-level chaos plan JSON "
                          "(kill_pod / partition_pod)")
@@ -222,10 +224,6 @@ def main(argv=None) -> int:
     if not (a.plans or a.serve or a.recover):
         ap.error("one of --plans / --serve / --submit / --recover / "
                  "--status is required")
-    if a.certify:
-        _log(f"--certify {a.certify}: static certification is not in the "
-             "port yet (it comes with the analysis layer)")
-        return 2
     return cmd_run(a)
 
 

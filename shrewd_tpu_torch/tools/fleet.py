@@ -1,8 +1,9 @@
 """Multi-tenant fleet driver — the CLI over ``shrewd_tpu_torch/service/``
 (port of the JAX package's ``tools/fleet.py``, with its flags), run as
 ``python -m shrewd_tpu_torch.tools.fleet``.  Tenants run on the card
-unless ``--platform cpu`` asks for the CPU; ``--certify`` with a value
-exits rc 2 (the port has no static certification yet).
+unless ``--platform cpu`` asks for the CPU; ``--certify warn|strict`` is
+the fleet's certification floor (every tenant's campaign steps are
+certified on their first dispatch, ``shrewd_tpu_torch/analysis/``).
 
 Three modes:
 
@@ -117,7 +118,7 @@ def cmd_serve(a) -> int:
         _log(f"another server owns this fleet: {e}")
         return 2
     try:
-        common = dict(queue=queue, mesh=_mesh(a),
+        common = dict(queue=queue, mesh=_mesh(a), certify=a.certify,
                       idle_exit=not a.stay_resident, chaos=chaos)
         # only explicit CLI values override the snapshot's persisted
         # knobs on --resume/--recover (argparse default is None)
@@ -236,8 +237,8 @@ def main(argv=None) -> int:
                          "strict priority, FIFO within a class")
     ap.add_argument("--certify", default="",
                     choices=("", "off", "warn", "strict"),
-                    help="admission-time certification floor (not in "
-                         "the port yet: any value exits rc 2)")
+                    help="admission-time certification floor "
+                         "applied to every tenant's campaign steps")
     ap.add_argument("--trace", action="store_true",
                     help="install the process-wide tracer "
                          "(shrewd_tpu_torch/obs/): per-tenant event lanes, "
@@ -264,10 +265,6 @@ def main(argv=None) -> int:
                          "(or gpu) is every visible card")
     a = ap.parse_args(argv)
 
-    if a.certify:
-        _log(f"--certify {a.certify}: static certification is not in the "
-             "port yet (it comes with the analysis layer)")
-        return 2
     if a.submit:
         return cmd_submit(a)
     if a.serve or a.plans or a.matrix or a.resume or a.recover:

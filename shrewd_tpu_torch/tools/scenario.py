@@ -1,8 +1,9 @@
 """Scenario-matrix driver — the CLI over ``shrewd_tpu_torch/scenario/``
 (port of the JAX package's ``tools/scenario.py``, with its flags), run as
 ``python -m shrewd_tpu_torch.tools.scenario``.  Cells run on the card
-unless ``--platform cpu`` asks for the CPU; ``--certify`` with a value
-exits rc 2 (the port has no static certification yet).
+unless ``--platform cpu`` asks for the CPU; ``--certify warn|strict`` is
+the certification floor of every cell's campaign steps
+(``shrewd_tpu_torch/analysis/``).
 
 One declarative plan (see README "Scenario matrix" for the schema)
 expands to the full (workloads × windows × fault targets × protection
@@ -100,7 +101,7 @@ def cmd_serve(a) -> int:
         return 2
     try:
         kw = dict(prune=not a.no_prune, pareto_every=a.pareto_every,
-                  mesh=_mesh(a))
+                  mesh=_mesh(a), certify=a.certify)
         if a.chaos_plan:
             from shrewd_tpu_torch.chaos import ChaosEngine
 
@@ -199,8 +200,8 @@ def main(argv=None) -> int:
                          "counted, never wall clock; default 4)")
     ap.add_argument("--certify", default="",
                     choices=("", "off", "warn", "strict"),
-                    help="admission-time certification floor (not in "
-                         "the port yet: any value exits rc 2)")
+                    help="admission-time certification floor "
+                         "applied to every cell's campaign steps")
     ap.add_argument("--chaos-plan", default="",
                     help="fleet-level chaos plan JSON (survivability "
                          "drills)")
@@ -211,10 +212,6 @@ def main(argv=None) -> int:
                          "gpu) is every visible card")
     a = ap.parse_args(argv)
 
-    if a.certify:
-        _log(f"--certify {a.certify}: static certification is not in the "
-             "port yet (it comes with the analysis layer)")
-        return 2
     if a.expand:
         if not a.plan:
             _log("--expand needs --plan")

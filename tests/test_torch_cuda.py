@@ -1366,3 +1366,72 @@ def test_three_pod_federation_with_kill_pod_on_card_equals_cpu(cuda,
     finally:
         trial.taint_fast_cuda = launch
     assert out["cuda"] == out["cpu"]
+
+
+# --- certification on the card ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_certificates():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from shrewd_tpu_torch.analysis.certify import \
+        certify_standard_executables
+
+    return certify_standard_executables(sync_debug=True)
+
+
+def test_standard_certificates_on_card_count_every_sync(card_certificates):
+    """Each standard step certifies on the card at one transfer, both
+    fixtures are rejected, and on each call the auditor's host-sync
+    census equals torch's ``set_sync_debug_mode("warn")`` count: the
+    CPU-visible census misses no kind of sync on the card."""
+    doc = card_certificates
+    assert doc["ok"] and doc["fixture_rejected"]
+    assert doc["until_ci_fixture_rejected"]
+    certs = dict(doc["certificates"])
+    certs["fixture/interval"] = doc["violation_fixture"]
+    certs["fixture/until_ci"] = doc["until_ci_violation_fixture"]
+    for name, cert in certs.items():
+        assert sum(cert["syncs"].values()) == cert["sync_debug"], (
+            name, cert["syncs"], cert["sync_debug"])
+        if not name.startswith("fixture"):
+            assert cert["ok"] and cert["transfers"] == 1, (name, cert)
+
+
+def test_strict_flagship_campaign_on_card_runs_clean(cuda, tmp_path):
+    """A strict certified campaign on the flagship window: every step
+    kind it dispatches certifies, none is refused, and its tallies equal
+    the same plan uncertified."""
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan, TraceFileSpec
+    from shrewd_tpu_torch.parallel import exec_cache
+    from shrewd_tpu_torch.trace import format as tf
+
+    trace = native.generate_trace(seed=1, n=4096, nphys=256,
+                                  mem_words=4096, working_set_words=1024)
+    npz = str(tmp_path / "flagship.npz")
+    tf.save(npz, trace, meta={"source": "native.generate_trace"})
+
+    def run(certify):
+        plan = CampaignPlan(
+            simpoints=[TraceFileSpec(name="flagship", path=npz)],
+            structures=["regfile"], batch_size=4096,
+            target_halfwidth=0.01, stratify=True, max_trials=3 * 4096)
+        plan.pipeline.until_ci = True
+        plan.analysis.certify = certify
+        orch = Orchestrator(plan)
+        events = list(orch.events())
+        assert events[-1][0].name == "CAMPAIGN_COMPLETE"
+        return orch, {k: r.tallies.tolist() for k, r in events[-1][1].items()}
+
+    _, plain = run("off")
+    refused = exec_cache.cache().refused
+    try:
+        orch, strict = run("strict")
+        certs = list(exec_cache.cache().certificates.values())
+    finally:
+        exec_cache.clear_auditor()
+    assert strict == plain
+    assert orch.auditor.audited > 0 and orch.auditor.failed == 0
+    assert certs and all(c["ok"] and c["transfers"] == 1 for c in certs)
+    assert exec_cache.cache().refused == refused

@@ -434,7 +434,8 @@ def test_second_tenant_on_shared_window_builds_no_kernel():
 def test_fleet_cli_matches_reference(tmp_path):
     """``python -m shrewd_tpu_torch.tools.fleet --plans … --platform
     cpu`` against the reference's ``tools/fleet.py`` on the same plan
-    files: rc 0 and equal fleet.json tenants; ``--certify`` exits rc 2."""
+    files: rc 0 and equal fleet.json tenants, with ``--certify strict``
+    too (every tenant's steps certified, none refused)."""
     import importlib.util
 
     from shrewd_tpu_torch.tools import fleet as port_fleet
@@ -456,14 +457,21 @@ def test_fleet_cli_matches_reference(tmp_path):
         assert port_fleet.main(["--plans", *paths, "--outdir",
                                 str(tmp_path / "port"),
                                 "--platform", "cpu"]) == 0
-        assert port_fleet.main(["--plans", *paths, "--outdir",
-                                str(tmp_path / "cert"), "--platform",
-                                "cpu", "--certify", "strict"]) == 2
-    assert "not in the port" in err.getvalue()
+        refused = exec_cache.cache().refused
+        try:
+            assert port_fleet.main(["--plans", *paths, "--outdir",
+                                    str(tmp_path / "cert"), "--platform",
+                                    "cpu", "--certify", "strict"]) == 0
+            auditor = exec_cache.current_auditor()
+            assert auditor.strict and auditor.failed == 0
+            certs = exec_cache.cache().certificates.values()
+            assert certs and all(c["ok"] for c in certs)
+            assert exec_cache.cache().refused == refused
+        finally:
+            exec_cache.clear_auditor()
     assert fleet_doc(str(tmp_path / "port")) == \
-        fleet_doc(str(tmp_path / "ref"))
-    with pytest.raises(NotImplementedError):
-        PORT.Sched(mesh=PORT.mesh(), certify="warn")
+        fleet_doc(str(tmp_path / "ref")) == fleet_doc(str(tmp_path / "cert"))
+    assert PORT.Sched(mesh=PORT.mesh(), certify="warn").certify == "warn"
 
 
 # --- a binary-in tenant ------------------------------------------------------

@@ -17,7 +17,10 @@ and scenario CLIs (``tools.fleet --plans`` and ``tools.scenario --serve``
 and ``--status`` with ``--platform cpu``), the protection search and the
 thermal network, and the federation CLI (``tools.federation --plans``
 under ``kill_pod`` chaos with the HTTP front, then ``--status``, with
-``--platform cpu``) and a gateway crash sweep.  The fleet's mesh, a
+``--platform cpu``, and again with ``--certify warn``) and a gateway
+crash sweep, and the analysis layer: the standard step certificates on
+the CPU, ``tools.graftlint`` over the port's tree and ``tools.obs`` over
+the fleet's artifacts.  The fleet's mesh, a
 federation pod's mesh, ``DesignSpace`` and the thermal factorization
 default to the card too; the port's version is the reference's."""
 
@@ -267,16 +270,41 @@ with tempfile.TemporaryDirectory() as d, \
         "--chaos-plan", os.path.join(d, "chaos.json"), "--http", "0",
         "--platform", "cpu"]) == 0
     assert federation_cli.main(["--status", fed_root]) == 0
-    assert federation_cli.main(["--plans", os.path.join(d, "p.json"),
-                                "--certify", "warn"]) == 2
     status = json.loads(out.getvalue()[out.getvalue().index("{"):])
     assert sorted(status["tenants"]) == ["t0_p", "t1_p"], status
     assert status["dead_pods"] == ["pod0"], status
+    assert federation_cli.main(["--plans", os.path.join(d, "p.json"),
+                                "--outdir", os.path.join(d, "fed2"),
+                                "--platform", "cpu", "--certify",
+                                "warn"]) == 0
+    from shrewd_tpu_torch.parallel import exec_cache
+    assert exec_cache.current_auditor() is not None
+    exec_cache.clear_auditor()
     doc = crashcheck.run_gateway_crashcheck(
         os.path.join(d, "sweep"), crashcheck.small_fleet_plans(
             seeds=(3,), n_batches=1), mesh=make_mesh(["cpu"]),
         point_filter=lambda pt: pt.kind in ("route", "place"))
     assert doc["ok"] and doc["points_checked"] == 2, doc
+from shrewd_tpu_torch.analysis.certify import certify_standard_executables
+from shrewd_tpu_torch.tools import graftlint as graftlint_cli
+from shrewd_tpu_torch.tools import obs as obs_cli
+cdoc = certify_standard_executables(batch_size=8, sync_every=2, device="cpu")
+assert cdoc["ok"] and cdoc["fixture_rejected"], cdoc
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stdout(io.StringIO()):
+    assert graftlint_cli.main(["--no-jaxpr", "--strict", "--audit-waivers",
+                               "--sarif", os.path.join(d, "l.sarif")]) == 0
+    json.dump({"faults": []}, open(os.path.join(d, "chaos.json"), "w"))
+    json.dump(small, open(os.path.join(d, "p.json"), "w"))
+    assert fleet_cli.main(["--plans", os.path.join(d, "p.json"),
+                           "--outdir", os.path.join(d, "fleet"), "--trace",
+                           "--platform", "cpu"]) == 0
+    assert obs_cli.main(["--tail", os.path.join(d, "fleet")]) == 0
+    events = [{"seq": 0, "name": "tenant_start", "cat": "fleet",
+               "ph": "i", "ts": 0.0, "args": {"tenant": "a"}}]
+    json.dump(events, open(os.path.join(d, "ev.json"), "w"))
+    assert obs_cli.main(["--summarize", os.path.join(d, "ev.json")]) == 0
+    assert obs_cli.main(["--timeline", os.path.join(d, "ev.json")]) == 0
 loaded = sorted(m for m in sys.modules
                 if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
 assert not loaded, loaded

@@ -188,5 +188,6 @@ def test_engines_count_intervals_and_round_trips(window):
     doc = ci.obtain(2, 6, np.asarray(doc["tally"]), None, False)
     assert doc["n_batches"] == 6 and len(doc["hw_tail"]) == 6
     assert perf.super_intervals == 1 and perf.auto_sync_every == 6
-    # six batches, each with its stop flag read, and two final copies
-    assert perf.host_roundtrips_saved == 6 - (6 + 2)
+    # six batches, each with its stop flag read, and ONE final copy (the
+    # accumulators with the half-width trace)
+    assert perf.host_roundtrips_saved == 6 - (6 + 1)

@@ -124,6 +124,8 @@ def _tiny(**kw):
 
 def _later_options():
     def certify(p):
+        # came with the certification slice: held as working
+        # (test_later_slice_options_raise_before_a_trial)
         p.analysis.certify = "strict"
 
     def cache_dir(p):
@@ -198,9 +200,29 @@ def test_later_slice_options_raise_before_a_trial(option, monkeypatch,
                                                   tmp_path):
     """Every option of a later slice raises before the first trial.  A
     ``CheckpointSpec`` simpoint came with the checkpoint slice: its plan
-    runs both simpoints to the end."""
+    runs both simpoints to the end.  ``analysis.certify`` came with the
+    certification slice: a strict plan runs to the plain plan's tallies,
+    every step it dispatched certified and none refused."""
     plan = _tiny()
     _later_options()[option](plan)
+    if option == "certify":
+        from shrewd_tpu_torch.parallel import exec_cache
+
+        plain = list(Orchestrator(_tiny(), device="cpu").events())
+        refused = exec_cache.cache().refused
+        try:
+            orch = Orchestrator(plan, device="cpu")
+            events = list(orch.events())
+            assert orch.auditor is exec_cache.current_auditor()
+            assert orch.auditor.strict and orch.auditor.audited > 0
+            assert orch.auditor.failed == 0
+            assert exec_cache.cache().refused == refused
+        finally:
+            exec_cache.clear_auditor()
+        assert events[-1][0].name == "CAMPAIGN_COMPLETE"
+        assert {k: r.tallies.tolist() for k, r in events[-1][1].items()} \
+            == {k: r.tallies.tolist() for k, r in plain[-1][1].items()}
+        return
     if option == "checkpoint_spec":
         plan.simpoints[-1].cpt_dir = _literal_cpt(tmp_path)
         events = list(Orchestrator(plan, device="cpu").events())

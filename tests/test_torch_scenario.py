@@ -312,22 +312,36 @@ def test_cli_status_pareto_and_expand_match_reference(closed_loop,
     pc, ptext, _ = _cli(port_cli.main, ["--plan", path, "--expand"])
     assert rc == pc == 0 and ptext == rtext
     assert json.loads(ptext)["n_cells"] == 12
-    assert _cli(port_cli.main, ["--plan", path, "--serve", "--certify",
-                                "warn"])[0] == 2
+    assert _cli(port_cli.main, ["--serve"])[0] == 2     # needs --plan
 
 
 def test_cli_serve_on_the_cpu(tmp_path):
     """``--serve --platform cpu`` runs a small matrix through the
-    port's CLI to rc 0 and writes the artifact the runner writes."""
+    port's CLI to rc 0 and writes the artifact the runner writes, with
+    every cell's campaign steps certified (``--certify strict``) and none
+    refused."""
+    from shrewd_tpu_torch.parallel import exec_cache
+
     doc = matrix_doc("cli", targets=("regfile",), thermal=[
         {"name": "tnom"}])
     path = str(tmp_path / "m.json")
     json.dump(doc, open(path, "w"))
     outdir = str(tmp_path / "out")
-    rc, _, err = _cli(port_cli.main, ["--plan", path, "--serve",
-                                      "--outdir", outdir, "--platform",
-                                      "cpu", "--pareto-every", "1"])
+    refused = exec_cache.cache().refused
+    try:
+        rc, _, err = _cli(port_cli.main, ["--plan", path, "--serve",
+                                          "--outdir", outdir, "--platform",
+                                          "cpu", "--pareto-every", "1",
+                                          "--certify", "strict"])
+        auditor = exec_cache.current_auditor()
+    finally:
+        exec_cache.clear_auditor()
     assert rc == 0, err
+    # cells on one window share their step certificates in the ledger
+    assert auditor.strict and auditor.failed == 0
+    certs = exec_cache.cache().certificates.values()
+    assert certs and all(c["ok"] for c in certs)
+    assert exec_cache.cache().refused == refused
     art = pareto_doc(outdir, "cli")
     assert set(art) == {"schema", "tag", "sdc_target", "axes", "cells",
                         "decisions", "search", "fleet"}
