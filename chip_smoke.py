@@ -281,7 +281,35 @@ JAX.  Phases, each fatal:
     structure; (c) once the lanes end, ``tools.obs --summarize`` and
     ``--timeline`` over the trace phase 13's resumed run wrote and
     ``--tail`` over phase 18's and phase 19's ``metrics.json``: rc 0
-    each.
+    each;
+21. the north-star sweep on the card at ``BENCH_r07.json``'s
+    settings, at full width, cut to one of its two workloads for the
+    script's time limit (``NS``: ``workloads/sort.c``, k=1, interval
+    4000, all six O3 structures, ±0.008, at most 16384 trials, serial
+    batch 4096, fleet batch 1024, ``sync_every`` 4, depth budget 4: 6
+    campaigns an arm), in a lane of its own: (a)
+    ``tools.northstar._build_windows``, each window's µops, macro-ops,
+    lift rate and weight and the capture and emulate + lift seconds
+    apart (its ptrace captures are the only ones while the lanes run);
+    (b) the serial arm, ``_run_serial``, K1's count zeroed just before
+    it: every campaign's trials a multiple of 4096 and at most 16384,
+    converged or capped, one K1 launch per batch, K1 bitwise equal to
+    its plain version on its first launch, each structure's weighted AVF
+    the sum over its SimPoint rows, and the first batch of the regfile
+    and the latch campaign (the ``MinorConfig`` path) equal, keys and
+    tally, to the same batch on the CPU (a spawned process, run beside
+    the card's arms); (c) the fleet arm, ``_run_fleet``, from a cold
+    kernel registry, K1's count zeroed just before it: rc 0, every
+    tenant complete, converged or capped, one K1 launch per dispatched
+    batch (the engine drops intervals dispatched past a tenant's stop),
+    K1 bitwise equal to its plain version, the regfile and latch tenants
+    equal, tallies and trials, to a solo ``Orchestrator`` run of their
+    plans on the card; the two arms' seconds and their ratio printed as
+    a reading; (d) ``tools.simpoint_avf`` on ``intmm.c`` (k=1, 1024
+    trials a window): each window's tally sums to 1024, 256 keys a
+    window give the C++ oracle's outcomes, one K1 launch a window, K1
+    bitwise equal to its plain version.  Both cuts (``intmm.c`` out of
+    (b)-(c), (d) at k=1, not 3) were taken for the time limit.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -290,13 +318,14 @@ FU pool's coverage.
 
 Phases 1-10 run alone in this process, so the kernels line's times
 (phases 6, 9 and 10) are taken with nothing else on the card.  Phases 13
-and 14 + 18 and 19 then run in three child processes of this script, one
-lane each (``python3 chip_smoke.py --lane NAME RESULT``: its own launch
-counters, each zeroed before its path as here; the lane's output is
-printed when it ends and its results come back as JSON), beside this
-process's phases 11, 12 and 15.  Phases 16 and 17, which trace binaries
-with ptrace, run alone after the lanes end.  The seconds of phases 11-15,
-18 and 19 are readings taken beside one another.
++ 20, 14 + 18, 19 and 21 then run in four child processes of this
+script, one lane each (``python3 chip_smoke.py --lane NAME RESULT``: its
+own launch counters, each zeroed before its path as here; the lane's
+output is printed when it ends and its results come back as JSON),
+beside this process's phases 11, 12 and 15.  Phases 16 and 17, which
+trace binaries with ptrace, run alone after the lanes end; phase 21's two
+captures are the only ones while the lanes run.  The seconds of phases
+11-15 and 18-21 are readings taken beside one another.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (K1 ``taint_fast`` and K2 ``taint_chunk``); the last line is
@@ -545,10 +574,25 @@ FED_SHARD_CHAOS = {"faults": [
 FED_AUTOSCALE = dict(min_pods=2, max_pods=3, up_trials=16384.0,
                      down_trials=2048.0, cooldown_rounds=1)
 FED_SWEEP_POINTS = 4
+# phase 21: the north-star sweep at BENCH_r07.json's settings, full width
+# (tools.northstar's flags), one of its two workloads (intmm.c was cut for
+# the time limit); the (workload, structure) campaigns held card = CPU on
+# their first batch in (b) and fleet = solo in (c); (d) tools.simpoint_avf
+# on intmm.c, its windows' first keys held against the C++ oracle.
+# NS_DEVICE is where the phase runs: the card (a rehearsal on the CPU sets
+# "cpu" and shrinks NS).
+NS = dict(workloads=["workloads/sort.c"], k=1, interval=4000,
+          halfwidth=0.008, max_trials=16384, batch=4096, fleet_batch=1024,
+          sync_every=4, depth_budget=4, seed=0)
+NS_HELD = (("workloads/sort.c", "regfile"), ("workloads/sort.c", "latch"))
+NS_SA = dict(workload="workloads/intmm.c", k=1, trials=1024, oracle=256)
+NS_DEVICE = "cuda"
 
 LANES = {"cli": ("cli_phase", "certify_phase"),
-         "tiers": ("tier_phase", "matrix_phase"), "fed": ("fed_phase",)}
-LANE_PHASES = {"cli": "13 and 20", "tiers": "14 and 18", "fed": "19"}
+         "tiers": ("tier_phase", "matrix_phase"), "fed": ("fed_phase",),
+         "ns": ("northstar_phase",)}
+LANE_PHASES = {"cli": "13 and 20", "tiers": "14 and 18", "fed": "19",
+               "ns": "21"}
 LANE_TIMEOUT_S = 900            # from the lanes' start to their last result
 _lanes: list = []               # (name, Popen) of the lanes started
 KEEP_DIR = None                 # in a lane: where phases leave artifacts
@@ -3574,7 +3618,7 @@ def fed_plan(structure: str, seed: int, **kw) -> dict:
 
 
 class K1Probe:
-    """K1's instrumentation in phases 18 and 19: every launch's lane
+    """K1's instrumentation in phases 18, 19 and 21: every launch's lane
     count, the first launch of each lane count kept for the comparison
     with the plain version, and calls of the plain version on card
     tensors.  ``reset`` zeroes the counts before a path."""
@@ -4009,6 +4053,354 @@ def fed_phase(torch, marks, card) -> dict:
     timings["fed_phase_s"] = time.monotonic() - t_phase
     return {"timings": timings, "launches": launches, "k1_max_err": max_err,
             "front": front}
+
+
+def ns_cpu_tally(npz: str, structure: str, keys) -> list:
+    """Phase 21 (b)'s CPU side, in a spawned process of its own (one torch
+    thread), beside the card's arms: the first batch of a serial campaign
+    on the window saved at ``npz``, run on the CPU → its tally."""
+    import os
+
+    import torch
+
+    from shrewd_tpu_torch.models.minor import MinorConfig
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.parallel.campaign import ShardedCampaign
+    from shrewd_tpu_torch.parallel.mesh import make_mesh
+    from shrewd_tpu_torch.trace import format as tf
+
+    # below the lanes' processes, which drive the card: this check only
+    # has to be done by the end of (c)
+    os.nice(10)
+    torch.set_num_threads(1)
+    trace, _ = tf.load(npz)
+    kernel = TrialKernel(trace, O3Config(), MinorConfig(), device="cpu")
+    camp = ShardedCampaign(kernel, make_mesh(["cpu"]), structure)
+    return camp.tally_batch(torch.as_tensor(keys)).tolist()
+
+
+def northstar_phase(torch, marks, card) -> dict:
+    """Phase 21, the north-star sweep on the card → the timings, K1's
+    launches on each arm and K1's largest difference from its plain
+    version.  (a) the SimPoint windows of ``NS``'s workloads; (b)
+    ``tools.northstar``'s serial arm; (c) its fleet arm; (d)
+    ``tools.simpoint_avf`` on ``NS_SA``'s workload.  Every gate holds the
+    card against the port on the CPU, a solo run, the C++ oracle or the
+    kernel's plain version, never against a number pinned elsewhere: the
+    workloads are built with this machine's gcc."""
+    import argparse
+    import concurrent.futures as cf
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch.campaign.orchestrator import Orchestrator
+    from shrewd_tpu_torch.campaign.plan import CampaignPlan
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.ingest import simpoint as simpoint_mod
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.parallel import campaign as campaign_mod
+    from shrewd_tpu_torch.parallel import exec_cache
+    from shrewd_tpu_torch.service import scheduler as sched_mod
+    from shrewd_tpu_torch.tools import northstar as ns
+    from shrewd_tpu_torch.tools import simpoint_avf
+    from shrewd_tpu_torch.utils import prng
+
+    t_phase = time.monotonic()
+    timings: dict = {"card": card}
+    launches: dict = {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_ns_")
+    platform = "cpu" if NS_DEVICE == "cpu" else None
+    a = argparse.Namespace(structures=list(ns.STRUCTURES),
+                           platform=platform, **NS)
+    n_campaigns = len(a.workloads) * a.k * len(a.structures)
+
+    # (a) the windows: the builds, the ptrace captures (the only ones
+    # while the lanes run) and BBV + k-means + emulate + lift, apart
+    t0 = time.monotonic()
+    for wl in a.workloads:
+        hd.build_tools(wl)
+    t_build = time.monotonic() - t0
+    captures: list = []
+    run = subprocess.run
+
+    def timed_run(cmd, *args, **kw):
+        t = time.monotonic()
+        try:
+            return run(cmd, *args, **kw)
+        finally:
+            if str(cmd[0]).endswith("nativetrace"):
+                captures.append(time.monotonic() - t)
+
+    subprocess.run = timed_run
+    t0 = time.monotonic()
+    try:
+        windows = ns._build_windows(a)
+    finally:
+        subprocess.run = run
+    t_windows = time.monotonic() - t0
+    if len(captures) != len(a.workloads) or any(
+            len(w) != a.k for w in windows.values()):
+        fail(f"(a) {len(captures)} captures, windows "
+             f"{ {wl: len(w) for wl, w in windows.items()} }")
+    rows = []
+    for wl, ws in windows.items():
+        for trace, meta in ws:
+            rows.append({"workload": wl, "uops": trace.n,
+                         "macro_ops": meta["macro_ops"],
+                         "lift_rate": meta["stats"]["lift_rate"],
+                         "weight": meta["simpoint_weight"],
+                         "interval": meta["simpoint_interval"]})
+            log(f"(a) {wl} SimPoint interval {meta['simpoint_interval']}: "
+                f"{trace.n} µops of {meta['macro_ops']} macro-ops, lift "
+                f"rate {meta['stats']['lift_rate']:.4f}, weight "
+                f"{meta['simpoint_weight']:.4f}")
+    # each window spilled once (the fleet arm's tenants read these files)
+    tenants = {name: (plan, wl, s) for name, plan, _w, wl, s in
+               ns._fleet_tenants(a, windows, d)}
+    timings["ns_windows"] = {
+        "build_s": t_build, "capture_s": sum(captures),
+        "emulate_lift_s": t_windows - sum(captures), "windows": rows}
+    log(f"(a) windows: builds {t_build:.1f} s, {len(captures)} captures "
+        f"{sum(captures):.1f} s, BBV + k-means + emulate + lift "
+        f"{t_windows - sum(captures):.1f} s")
+    # (b)'s CPU side starts now, beside the card's arms
+    pool = cf.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    held = {}
+    for wl, s in NS_HELD:
+        (trace, meta), = windows[wl]
+        name = next(n for n, (_p, w, st) in tenants.items()
+                    if (w, st) == (wl, s))
+        keys = prng.trial_keys(prng.batch_key(prng.structure_key(
+            prng.simpoint_key(prng.campaign_key(a.seed, "cpu"),
+                              meta["simpoint_interval"]),
+            ns.STRUCTURES.index(s)), 0), a.batch)
+        npz = tenants[name][0].simpoints[0].path
+        held[(wl, s)] = (name, trace.n, keys,
+                         pool.submit(ns_cpu_tally, npz, s, keys.numpy()))
+    marks("21 (a) windows")
+
+    # (b) the serial arm, K1's count zeroed just before it; the first
+    # batch of each campaign kept (its keys and tally)
+    probe = K1Probe(torch)
+    first: dict = {}
+    tally_batch = campaign_mod.ShardedCampaign.tally_batch
+
+    def kept_batch(camp, keys, *args, **kw):
+        t = tally_batch(camp, keys, *args, **kw)
+        key = (camp.kernel.trace.n, camp.structure)
+        if key not in first:
+            first[key] = (keys.cpu(), t.clone())
+        return t
+
+    campaign_mod.ShardedCampaign.tally_batch = kept_batch
+    probe.reset()
+    t0 = time.monotonic()
+    try:
+        serial = ns._run_serial(a, windows)
+    finally:
+        campaign_mod.ShardedCampaign.tally_batch = tally_batch
+    t_serial = time.monotonic() - t0
+    n_serial, max_err = probe.read("(b) serial arm")
+    batches = 0
+    for wl, row in serial["workloads"].items():
+        for s, r in row["structures"].items():
+            for sp in r["simpoints"]:
+                if sp["trials"] % a.batch or sp["trials"] > a.max_trials:
+                    fail(f"(b) {wl} {s}: {sp['trials']} trials")
+            if not r["converged"] and all(sp["trials"] < a.max_trials
+                                          for sp in r["simpoints"]):
+                fail(f"(b) {wl} {s}: neither converged nor capped")
+            want = sum(sp["weight"] * sp["avf"] for sp in r["simpoints"])
+            # the document rounds each row and the sum to 4 places
+            if abs(r["weighted_avf"] - want) > 1e-4 * len(r["simpoints"]):
+                fail(f"(b) {wl} {s}: weighted AVF {r['weighted_avf']} != "
+                     f"{want} over its SimPoint rows")
+            batches += r["trials"] // a.batch
+    if serial["campaigns"] != n_campaigns:
+        fail(f"(b) {serial['campaigns']} campaigns, not {n_campaigns}")
+    if n_serial != batches:
+        fail(f"(b) K1 launched {n_serial} times for {batches} batches")
+    launches["north star serial arm (21 b)"] = n_serial
+    log(f"(b) serial arm: {serial['campaigns']} campaigns, "
+        f"{serial['total_trials']} trials in {batches} batches, "
+        f"{t_serial:.1f} s; K1 {n_serial} launches, one a batch, == plain "
+        "on the first")
+    marks("21 (b) serial arm")
+
+    # (c) the fleet arm from a cold kernel registry, K1's count zeroed
+    # just before it; the scheduler kept for the solo comparison
+    exec_cache.cache().clear()
+    exec_cache.clear_kernels()
+    scheds: list = []
+    init = sched_mod.CampaignScheduler.__init__
+
+    def kept_init(self, *args, **kw):
+        init(self, *args, **kw)
+        scheds.append(self)
+
+    sched_mod.CampaignScheduler.__init__ = kept_init
+    # the batches dispatched: the pipelined engine runs intervals ahead,
+    # and drops those past a tenant's stop (speculation), so K1 launches
+    # once a dispatched batch, consumed or dropped
+    dispatched = [0]
+    steps = {}
+    for meth, width in (("tally_batch", lambda keys: 1),
+                        ("tally_batch_stratified", lambda keys: 1),
+                        ("dispatch_interval", len)):
+        steps[meth] = step = getattr(campaign_mod.ShardedCampaign, meth)
+
+        def counted(camp, keys, *args, _step=step, _width=width, **kw):
+            dispatched[0] += _width(keys)
+            return _step(camp, keys, *args, **kw)
+
+        setattr(campaign_mod.ShardedCampaign, meth, counted)
+    probe.reset()
+    t0 = time.monotonic()
+    try:
+        fleet = ns._run_fleet(a, windows, d)
+    finally:
+        sched_mod.CampaignScheduler.__init__ = init
+        for meth, step in steps.items():
+            setattr(campaign_mod.ShardedCampaign, meth, step)
+    t_fleet = time.monotonic() - t0
+    n_fleet, err = probe.read("(c) fleet arm")
+    max_err = max(max_err, err)
+    sched = scheds[-1]
+    fb = a.fleet_batch
+    if fleet["rc"] != 0 or fleet["tenants"] != n_campaigns:
+        fail(f"(c) fleet rc {fleet['rc']}, {fleet['tenants']} tenants")
+    for name, t in sched.tenants.items():
+        row = fleet["workloads"][tenants[name][1]]["structures"][
+            tenants[name][2]]
+        if t.status != "complete" or t.trials % fb or \
+                t.trials > a.max_trials or not (
+                    row["converged"] or t.trials == a.max_trials):
+            fail(f"(c) {name}: {t.status}, {t.trials} trials, converged "
+                 f"{row['converged']}")
+    fleet_batches = sum(t.batches for t in sched.tenants.values())
+    if n_fleet != dispatched[0] or fleet_batches > dispatched[0]:
+        fail(f"(c) K1 launched {n_fleet} times for {dispatched[0]} batches "
+             f"dispatched, {fleet_batches} consumed")
+    launches["north star fleet arm (21 c)"] = n_fleet
+    solo_s = {}
+    for wl, s in NS_HELD:
+        name = held[(wl, s)][0]
+        t1 = time.monotonic()
+        orch = Orchestrator(CampaignPlan.from_dict(
+            sched.tenants[name].spec.plan), device=NS_DEVICE)
+        list(orch.events())
+        solo_s[name] = time.monotonic() - t1
+        solo = {k: (r.tallies.tolist(), r.trials)
+                for k, r in orch.results.items()}
+        got = {k: (v.tolist(), sched.tenants[name].trials)
+               for k, v in sched.tenant_tallies(name).items()}
+        if got != solo:
+            fail(f"(c) {name}: fleet {got} != its solo run {solo}")
+    speedup = t_serial / t_fleet
+    log(f"(c) fleet arm: rc 0, {fleet['tenants']} tenants complete "
+        f"({fleet['total_trials']} trials, {fleet_batches} batches of {fb}, "
+        f"{dispatched[0] - fleet_batches} more dispatched ahead and "
+        f"dropped, {fleet['fleet_ticks']} ticks, fairness "
+        f"{fleet['fairness_index']}), {t_fleet:.1f} s; K1 {n_fleet} "
+        f"launches, one a dispatched batch, == plain; "
+        + ", ".join(f"{n} == its solo run ({v:.1f} s)"
+                    for n, v in solo_s.items())
+        + f"; a reading: serial {t_serial:.1f} s / fleet {t_fleet:.1f} s "
+        f"= x{speedup:.3f} on {card}")
+    # (b)'s CPU side: the first batch of each held campaign
+    for (wl, s), (name, n, keys, fut) in held.items():
+        card_keys, card_tally = first[(n, s)]
+        cpu_tally = fut.result()
+        if not torch.equal(card_keys, keys) or \
+                card_tally.tolist() != cpu_tally:
+            fail(f"(b) {wl} {s}: first batch on the card "
+                 f"{card_tally.tolist()} != the CPU's {cpu_tally}")
+        log(f"(b) {wl} {s}: the first batch's tally on the card == the "
+            f"CPU's, {cpu_tally}")
+    pool.shutdown()
+    timings["ns_serial"] = {
+        "wall_s": t_serial, "trials": serial["total_trials"],
+        "batches": batches, "k1_launches": n_serial,
+        "campaigns": {f"{wl} {s}": {"trials": r["trials"],
+                                    "avf": r["weighted_avf"],
+                                    "converged": r["converged"],
+                                    "wall_s": r["wall_clock_s"]}
+                      for wl, row in serial["workloads"].items()
+                      for s, r in row["structures"].items()}}
+    timings["ns_fleet"] = {
+        "wall_s": t_fleet, "trials": fleet["total_trials"],
+        "batches": fleet_batches, "dispatched": dispatched[0],
+        "k1_launches": n_fleet,
+        "ticks": fleet["fleet_ticks"],
+        "fairness_index": fleet["fairness_index"],
+        "exec_cache": fleet["exec_cache"], "solo_s": solo_s,
+        "speedup_reading": speedup}
+    marks("21 (c) fleet arm")
+
+    # (d) tools.simpoint_avf, its windows kept for the oracle
+    kept_windows: list = []
+    simpoint_windows = simpoint_mod.simpoint_windows
+
+    def keep_windows(*args, **kw):
+        out = simpoint_windows(*args, **kw)
+        kept_windows.append(out[0])
+        return out
+
+    simpoint_mod.simpoint_windows = keep_windows
+    out = os.path.join(d, "simpoint_avf.json")
+    probe.reset()
+    t0 = time.monotonic()
+    try:
+        _cli_stdout(simpoint_avf.main, [
+            "--workload", NS_SA["workload"], "--k", str(NS_SA["k"]),
+            "--trials", str(NS_SA["trials"]), "--out", out]
+            + (["--platform", platform] if platform else []))
+    finally:
+        simpoint_mod.simpoint_windows = simpoint_windows
+    t_sa = time.monotonic() - t0
+    n_sa, err = probe.read("(d) simpoint_avf")
+    max_err = max(max_err, err)
+    probe.close()
+    doc = _read_json(out)
+    (sa_windows,) = kept_windows
+    if len(doc["windows"]) != len(sa_windows) or n_sa != len(sa_windows):
+        fail(f"(d) {len(doc['windows'])} windows in the document, "
+             f"{len(sa_windows)} selected, {n_sa} K1 launches")
+    root = prng.campaign_key(NS["seed"], NS_DEVICE)
+    for row, (trace, meta) in zip(doc["windows"], sa_windows):
+        if sum(row["tally"]) != NS_SA["trials"]:
+            fail(f"(d) window {row['interval']}: tally {row['tally']}")
+        kernel = TrialKernel(trace, O3Config(), device=NS_DEVICE)
+        keys = prng.trial_keys(prng.batch_key(prng.structure_key(
+            prng.simpoint_key(root, meta["simpoint_interval"]), 0), 0),
+            NS_SA["trials"])[:NS_SA["oracle"]]
+        faults = kernel.sample_batch(keys, "regfile")
+        bad = int((kernel.run_batch_hybrid(faults, may_latch=False)
+                   != kernel.oracle_outcomes(faults)).sum())
+        if bad:
+            fail(f"(d) window {row['interval']}: {bad}/{NS_SA['oracle']} "
+                 "outcomes differ from the C++ oracle")
+    launches["simpoint_avf regfile (21 d)"] = n_sa
+    timings["ns_simpoint_avf"] = {
+        "wall_s": t_sa, "k_selected": doc["k_selected"],
+        "weighted_avf": doc["weighted_avf"],
+        "windows": [{k: r[k] for k in ("interval", "weight", "uops",
+                                       "avf", "tally", "seconds")}
+                    for r in doc["windows"]]}
+    log(f"(d) simpoint_avf {NS_SA['workload']}: {doc['k_selected']} "
+        f"windows ({', '.join(str(r['uops']) for r in doc['windows'])} "
+        f"µops), tallies of {NS_SA['trials']} each, weighted AVF "
+        f"{doc['weighted_avf']}, {NS_SA['oracle']} outcomes a window == "
+        f"the C++ oracle; K1 {n_sa} launches, == plain; {t_sa:.1f} s")
+    shutil.rmtree(d, ignore_errors=True)
+    timings["northstar_phase_s"] = time.monotonic() - t_phase
+    marks("21 (d) simpoint_avf")
+    return {"timings": timings, "launches": launches, "k1_max_err": max_err}
 
 
 def _cli_stdout(main, argv) -> str:
@@ -4455,6 +4847,7 @@ def main() -> int:
     lanes = join_lanes(lanes_dir, t_lanes)
     cli_run, matrix_run = lanes["cli_phase"], lanes["matrix_phase"]
     fed_run, cert_run = lanes["fed_phase"], lanes["certify_phase"]
+    ns_run = lanes["northstar_phase"]
     cli_run.pop("until_stats")
     obs_run = obs_phase(os.path.join(lanes_dir, "keep"), card)
     shutil.rmtree(lanes_dir, ignore_errors=True)
@@ -4464,12 +4857,13 @@ def main() -> int:
     log(json.dumps({"timings": lanes["tier_phase"]}))
     log(json.dumps({"timings": matrix_run["timings"]}))
     log(json.dumps({"timings": fed_run["timings"]}))
+    log(json.dumps({"timings": ns_run["timings"]}))
     if fed_run["front"] != matrix_run["front"]:
         fail("19 (c): the federated matrix's Pareto front differs from "
              "phase 18's solo front")
     log(f"19 (c): the federated front == phase 18's solo front, bitwise "
         f"({len(fed_run['front'])} groups)")
-    log(f"phases 11-15 and 18-20 in four processes: "
+    log(f"phases 11-15 and 18-21 in five processes: "
         f"{time.monotonic() - t_lanes:.1f} s (lanes "
         + ", ".join(f"{n} {s:.1f} s" for n, s in lanes["lane_s"].items())
         + ")")
@@ -4485,6 +4879,7 @@ def main() -> int:
     paths["launches"].update(matrix_run["launches"])
     paths["launches"].update(fed_run["launches"])
     paths["launches"].update(cert_run["launches"])
+    paths["launches"].update(ns_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
@@ -4493,7 +4888,8 @@ def main() -> int:
     max_err = max(max_err, paths["k1_max_err"], cli_run["k1_max_err"],
                   mesh_run["k1_max_err"], ingest_run["k1_max_err"],
                   ckpt_run["k1_max_err"], matrix_run["k1_max_err"],
-                  fed_run["k1_max_err"], cert_run["k1_max_err"])
+                  fed_run["k1_max_err"], cert_run["k1_max_err"],
+                  ns_run["k1_max_err"])
     k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),

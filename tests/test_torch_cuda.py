@@ -1435,3 +1435,37 @@ def test_strict_flagship_campaign_on_card_runs_clean(cuda, tmp_path):
     assert orch.auditor.audited > 0 and orch.auditor.failed == 0
     assert certs and all(c["ok"] and c["transfers"] == 1 for c in certs)
     assert exec_cache.cache().refused == refused
+
+
+@needs_toolchain
+def test_north_star_serial_arm_on_card_equals_cpu(cuda):
+    """``tools.northstar``'s serial arm on ``workloads/rotmix.c``'s one
+    SimPoint window (interval 4000, k=1; regfile and latch, batch 256,
+    ±0.05, at most 1024 trials) gives the CPU's document on the card, once
+    the wall-clock fields, ``platform``, the card's identity and the
+    set-up seconds are set aside; both runs take one capture's window."""
+    import argparse
+
+    from shrewd_tpu_torch.tools import northstar
+
+    def scrub(doc):
+        if isinstance(doc, dict):
+            return {k: scrub(v) for k, v in doc.items() if k not in (
+                "wall_clock_s", "trials_per_sec", "total_wall_clock_s",
+                "platform", "card", "setup")}
+        if isinstance(doc, list):
+            return [scrub(v) for v in doc]
+        return doc
+
+    a = argparse.Namespace(workloads=["workloads/rotmix.c"],
+                           structures=["regfile", "latch"], k=1,
+                           interval=4000, halfwidth=0.05, batch=256,
+                           max_trials=1024, seed=0, platform=None)
+    windows = northstar._build_windows(a)
+    card = northstar._run_serial(a, windows)
+    a.platform = "cpu"
+    cpu = northstar._run_serial(a, windows)
+    assert (card["platform"], cpu["platform"]) == ("gpu", "cpu")
+    assert card["card"] and cpu["card"] is None
+    assert scrub(card) == scrub(cpu)
+    assert card["total_trials"] > 0

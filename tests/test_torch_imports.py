@@ -20,7 +20,10 @@ under ``kill_pod`` chaos with the HTTP front, then ``--status``, with
 ``--platform cpu``, and again with ``--certify warn``) and a gateway
 crash sweep, and the analysis layer: the standard step certificates on
 the CPU, ``tools.graftlint`` over the port's tree and ``tools.obs`` over
-the fleet's artifacts.  The fleet's mesh, a
+the fleet's artifacts.  A second no-jax subprocess runs the north-star
+tools, ``tools.northstar`` (serial, then ``--fleet --also-serial``) and
+``tools.simpoint_avf``, on ``workloads/rotmix.c`` with ``--platform
+cpu``.  The fleet's mesh, a
 federation pod's mesh, ``DesignSpace`` and the thermal factorization
 default to the card too; the port's version is the reference's."""
 
@@ -312,6 +315,36 @@ print("ok", tally.tolist())
 """
 
 
+_NO_JAX_NORTHSTAR = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import contextlib, io, json, os, tempfile
+from shrewd_tpu_torch.tools import northstar, simpoint_avf
+small = ["--workloads", "workloads/rotmix.c", "--structures", "regfile",
+         "--k", "1", "--batch", "64", "--max-trials", "128",
+         "--fleet-batch", "64", "--sync-every", "2", "--platform", "cpu"]
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stderr(io.StringIO()), \
+        contextlib.redirect_stdout(io.StringIO()):
+    out = [os.path.join(d, n) for n in ("s.json", "f.json", "b.json",
+                                        "a.json")]
+    assert northstar.main([*small, "--out", out[0]]) == 0
+    assert json.load(open(out[0]))["total_trials"] == 128
+    assert northstar.main([*small, "--fleet", "--also-serial", "--out",
+                           out[0], "--fleet-out", out[1], "--bench-out",
+                           out[2]]) == 0
+    assert json.load(open(out[2]))["fleet_trials"] == 128
+    assert simpoint_avf.main(["--workload", "workloads/rotmix.c", "--k",
+                              "1", "--trials", "64", "--platform", "cpu",
+                              "--out", out[3]]) == 0
+    assert sum(json.load(open(out[3]))["windows"][0]["tally"]) == 64
+loaded = sorted(m for m in sys.modules
+                if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
+assert not loaded, loaded
+print("ok")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
@@ -322,6 +355,17 @@ def test_port_runs_without_jax_or_the_reference():
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                           env=_env(), capture_output=True, text=True,
                           timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.skipif(not all(shutil.which(x) for x in
+                             ("gcc", "g++", "objdump", "nm")),
+                    reason="host toolchain required")
+def test_north_star_tools_run_without_jax_or_the_reference():
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_NORTHSTAR],
+                          cwd=ROOT, env=_env(), capture_output=True,
+                          text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
 
@@ -362,6 +406,12 @@ def _pod_mesh(tmp_path):
     return fed.pods["pod0"].build().mesh
 
 
+def _northstar_device():
+    from shrewd_tpu_torch.tools import northstar
+
+    return northstar.device_of(None)
+
+
 @pytest.mark.parametrize("make", [
     lambda: prng.campaign_key(0),
     lambda: prng.threefry_seed(7),
@@ -372,9 +422,10 @@ def _pod_mesh(tmp_path):
     lambda: _thermal().G,
     lambda: _fleet_mesh().devices[0],
     lambda tmp_path: _pod_mesh(tmp_path).devices[0],
+    lambda: torch.empty(0, device=_northstar_device()),
 ], ids=["campaign_key", "threefry_seed", "trial_key", "keys_from_key_data",
         "fault_from_arrays", "design_space", "thermal", "fleet_mesh",
-        "federation_pod_mesh"])
+        "federation_pod_mesh", "northstar"])
 def test_keys_and_inputs_default_to_the_card(make, tmp_path):
     if make.__code__.co_argcount:
         make = functools.partial(make, tmp_path)
