@@ -310,6 +310,42 @@ JAX.  Phases, each fatal:
     window give the C++ oracle's outcomes, one K1 launch a window, K1
     bitwise equal to its plain version.  Both cuts (``intmm.c`` out of
     (b)-(c), (d) at k=1, not 3) were taken for the time limit.
+22. the validation tools on the card, ``sort.c`` built with this
+    machine's gcc; each tool's captures and host runs are taken once and
+    shared by its card and CPU runs.  (a), (d) and (e), which capture or
+    ptrace, run in the ``ns`` lane after phase 21; (b) and (c), ~100 s
+    and ~20 s of step loops over the 6882-µop window, run in a child
+    process of this script (``python3 chip_smoke.py --validation-child
+    RESULT LIFT``) beside phases 16-17 once the lanes end, on the window
+    (a) lifted (they start no capture): (a) ``tools.timing_validate``: rc
+    0, the macro-ops, µops, proxy cycles and both scoreboard cycle counts
+    equal to a ``--platform cpu`` run, the rdtsc figures printed as a
+    reading; (b) ``tools.timing_effect`` at its 8192 trials: K1's count
+    zeroed just before it, exactly 12 launches (one a ``run_keys``: rob,
+    iq, lsq and fu under the proxy, scoreboard and squash models), the
+    first bitwise equal to its plain version, every tally summing to
+    8192, and iq's first 1024 outcomes under each model equal to the
+    CPU's; (c) ``tools.protect_validate`` at its 8192 trials: its rc the
+    one its ``pass`` gives, no K1 launch (both kernels carry the memmap:
+    every lane dense), the protected fu leg's first 1024 outcomes equal
+    to the CPU's, ``pass`` printed (the CPU sides of (b) and (c) in a
+    spawned process beside the card's runs); (d)
+    ``tools.diff_artifacts --mode fp`` on ``fpmix.c`` at 8 trials: no
+    row with ``error``, the summary present, every escalated trial
+    classified by the emulator; (e) ``tools.threeway_diff`` against
+    ``GEM5_GOLDEN_r04.json``: ``sort.c``'s sha256 printed beside the
+    golden's; where they differ the tool refuses (``BinaryMismatch``, the
+    reference's message, and rc 1 from ``python -m``) with no
+    ``run_host``, capture or ``run_device`` call and no ptrace child
+    started; where they are equal, on the golden trimmed to 64 trials,
+    the document equal to the CPU run's;
+23. ``tools.strat_effect`` on the card, in the ``fed`` lane after phase
+    19, at batch 512 and 4 of its 24 batches (cut for the time limit):
+    K1's count zeroed just before it, exactly 2 x 4 launches (one a batch
+    of the O3 regfile and fu tiers), the first bitwise equal to its plain
+    version, and each tier's first batch of stratified tallies (O3
+    regfile and fu, MESI state, dir and tbe, the NoC router) equal to
+    the same batch on the CPU (a spawned process beside the card's run).
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -318,14 +354,15 @@ FU pool's coverage.
 
 Phases 1-10 run alone in this process, so the kernels line's times
 (phases 6, 9 and 10) are taken with nothing else on the card.  Phases 13
-+ 20, 14 + 18, 19 and 21 then run in four child processes of this
-script, one lane each (``python3 chip_smoke.py --lane NAME RESULT``: its
++ 20, 14 + 18, 19 + 23 and 21 + 22 then run in four child processes of
+this script, one lane each (``python3 chip_smoke.py --lane NAME RESULT``: its
 own launch counters, each zeroed before its path as here; the lane's
 output is printed when it ends and its results come back as JSON),
 beside this process's phases 11, 12 and 15.  Phases 16 and 17, which
-trace binaries with ptrace, run alone after the lanes end; phase 21's two
-captures are the only ones while the lanes run.  The seconds of phases
-11-15 and 18-21 are readings taken beside one another.
+trace binaries with ptrace, run after the lanes end, with phase 22 (b)
+and (c) (no capture) beside them; the captures of phases 21 and 22, one after
+another in one lane, are the only ones while the lanes run.  The seconds
+of phases 11-23 are readings taken beside one another.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (K1 ``taint_fast`` and K2 ``taint_chunk``); the last line is
@@ -588,11 +625,25 @@ NS_HELD = (("workloads/sort.c", "regfile"), ("workloads/sort.c", "latch"))
 NS_SA = dict(workload="workloads/intmm.c", k=1, trials=1024, oracle=256)
 NS_DEVICE = "cuda"
 
+# phase 22: the validation tools on sort.c at their defaults, (d)
+# diff_artifacts in fp mode on fpmix.c at 8 trials (phase 16 (d) covers
+# output and device64 on sort.c), (e) threeway_diff against the sort.c
+# golden, trimmed to its first 64 trials where this machine's gcc builds
+# gem5's binary.  (b) and (c) hold the first VAL["held"] keys of one
+# structure card = CPU (the CPU walks the ~6900-µop window at ~80 s a
+# model for 8192 keys).  Phase 23: strat_effect at batch 512, 4 of its 24
+# batches (cut for the time limit).  NS_DEVICE is where both run.
+VAL = dict(workload="workloads/sort.c", trials=8192, held=1024,
+           structure="iq", fp_workload="workloads/fpmix.c", fp_trials=8,
+           golden="GEM5_GOLDEN_r04.json", golden_trials=64)
+STRAT = dict(batch=512, batches=4)
+
 LANES = {"cli": ("cli_phase", "certify_phase"),
-         "tiers": ("tier_phase", "matrix_phase"), "fed": ("fed_phase",),
-         "ns": ("northstar_phase",)}
-LANE_PHASES = {"cli": "13 and 20", "tiers": "14 and 18", "fed": "19",
-               "ns": "21"}
+         "tiers": ("tier_phase", "matrix_phase"),
+         "fed": ("fed_phase", "strat_phase"),
+         "ns": ("northstar_phase", "validation_phase")}
+LANE_PHASES = {"cli": "13 and 20", "tiers": "14 and 18", "fed": "19 and 23",
+               "ns": "21 and 22"}
 LANE_TIMEOUT_S = 900            # from the lanes' start to their last result
 _lanes: list = []               # (name, Popen) of the lanes started
 KEEP_DIR = None                 # in a lane: where phases leave artifacts
@@ -4403,18 +4454,558 @@ def northstar_phase(torch, marks, card) -> dict:
     return {"timings": timings, "launches": launches, "k1_max_err": max_err}
 
 
-def _cli_stdout(main, argv) -> str:
-    """Run one of the port's CLI ``main``s in-process; rc 0 or fail; its
-    standard output."""
+class HostMemo:
+    """The port's ``hostdiff`` in phase 22: each binary captured and lifted
+    once per argument list and the host's ptrace SFI run once per
+    coordinate list (two captures of one binary differ, and so may two
+    host runs), so that a card run and a CPU run take the same ones; each
+    call of ``run_host``, ``run_device`` and the extended capture
+    counted, cached or not."""
+
+    ONCE = ("capture_and_lift", "capture_and_lift_to_output", "run_host")
+
+    def __init__(self):
+        from shrewd_tpu_torch.ingest import hostdiff as hd
+
+        self.hd, self.memo = hd, {}
+        self.calls = dict.fromkeys(self.ONCE + ("run_device",), 0)
+        self.saved = {n: getattr(hd, n) for n in self.calls}
+        for name in self.ONCE:
+            setattr(hd, name, self._once(name, self.saved[name]))
+        run_device = self.saved["run_device"]
+
+        def counted(*a, **kw):
+            self.calls["run_device"] += 1
+            return run_device(*a, **kw)
+
+        hd.run_device = counted
+
+    @staticmethod
+    def key(name: str, paths, a: tuple, kw: dict) -> tuple:
+        arg = np.asarray(a[0]).tobytes() if name == "run_host" else a
+        return (name, str(paths.workload), arg,
+                tuple(sorted((k, repr(v)) for k, v in kw.items())))
+
+    def _once(self, name, real):
+        def run(paths, *a, **kw):
+            self.calls[name] += 1
+            key = self.key(name, paths, a, kw)
+            if key not in self.memo:
+                self.memo[key] = real(paths, *a, **kw)
+            return self.memo[key]
+        return run
+
+    def close(self) -> None:
+        for name, real in self.saved.items():
+            setattr(self.hd, name, real)
+
+
+class KeptOutcomes:
+    """``TrialKernel.run_keys`` wrapped (phase 22): the outcomes of each
+    call's first ``n`` keys, by (the kernel's config, structure).  A
+    trial key fixes its outcome whatever the batch, so they are held
+    against the same keys run alone on the CPU."""
+
+    def __init__(self, n: int):
+        from shrewd_tpu_torch.ops.trial import TrialKernel
+
+        self.cls, self.run_keys, self.kept = TrialKernel, \
+            TrialKernel.run_keys, {}
+        run_keys, kept = self.run_keys, self.kept
+
+        def keeping(kernel, keys, structure):
+            hybrid = kernel.run_batch_hybrid
+
+            def rec(faults, may_latch=True):
+                out = hybrid(faults, may_latch=may_latch)
+                kept[(cfg_key(kernel.cfg), structure)] = out[:n].copy()
+                return out
+
+            kernel.run_batch_hybrid = rec
+            try:
+                return run_keys(kernel, keys, structure)
+            finally:
+                del kernel.run_batch_hybrid
+
+        TrialKernel.run_keys = keeping
+
+    def close(self) -> None:
+        self.cls.run_keys = self.run_keys
+
+
+def cfg_key(cfg) -> str:
+    return json.dumps(cfg.to_dict(), sort_keys=True)
+
+
+def val_cpu_outcomes(trace, meta, jobs) -> list:
+    """Phase 22's CPU side, in a spawned process of its own (one torch
+    thread), beside the card's runs: for each (config, structure, keys,
+    with the memmap) the outcomes on the CPU (no held structure is latch,
+    so ``may_latch`` is off, as ``run_keys`` runs them)."""
+    import os
+
+    import torch
+
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+
+    os.nice(10)
+    torch.set_num_threads(1)
+    out = []
+    for cfg, structure, keys, memmap in jobs:
+        kernel = TrialKernel(
+            trace, O3Config.from_dict(json.loads(cfg)), device="cpu",
+            memmap=hd.memmap_from_meta(meta, device="cpu") if memmap
+            else None)
+        out.append(kernel.run_batch_hybrid(kernel.sample_batch(
+            torch.as_tensor(keys), structure), may_latch=False).tolist())
+    return out
+
+
+def validation_phase(torch, marks, card) -> dict:
+    """Phase 22 (a), (d) and (e), the validation tools that capture or
+    ptrace, in the ``ns`` lane → the timings and where (a)'s window was
+    left for (b) and (c).  (a) ``tools.timing_validate``, (d)
+    ``tools.diff_artifacts``, (e) ``tools.threeway_diff``; (b)
+    ``tools.timing_effect`` and (c) ``tools.protect_validate`` run in a
+    child process of ``main`` once the lanes end
+    (``validation_child_part``), on the window (a) lifted.  Every gate
+    holds the card against the port on the CPU or the tool's own rules,
+    never against a number pinned elsewhere: the workloads are built with
+    this machine's gcc.  The tools' captures and host runs are taken once
+    and shared by their card and CPU runs (``HostMemo``); the lane's only
+    other captures are phase 21's, before them."""
+    import hashlib
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.tools import (diff_artifacts, threeway_diff,
+                                        timing_validate)
+
+    t_phase = time.monotonic()
+    timings: dict = {"card": card}
+    d = tempfile.mkdtemp(prefix="chip_smoke_val_")
+    plat = ["--platform", "cpu"] if NS_DEVICE == "cpu" else []
+    memo = HostMemo()
+    try:
+        # (a) timing_validate, then the same on the CPU from the same
+        # capture; the rdtsc figures are readings of this host
+        t0 = time.monotonic()
+        tv = {}
+        for name, extra in (("card", plat), ("cpu", ["--platform", "cpu"])):
+            out = os.path.join(d, f"tv_{name}.json")
+            _cli_stdout(timing_validate.main, ["--workload", VAL["workload"],
+                                               "--out", out, *extra])
+            tv[name] = _read_json(out)
+        same = ("macro_ops", "uops", "proxy_cycles", "scoreboard_cycles",
+                "scoreboard_squash_cycles")
+        if any(tv["card"][f] != tv["cpu"][f] for f in same):
+            fail(f"(a) timing_validate: card {[tv['card'][f] for f in same]}"
+                 f" != CPU {[tv['cpu'][f] for f in same]}")
+        t_a = time.monotonic() - t0
+        tva = tv["card"]
+        log(f"(a) timing_validate {VAL['workload']}: {tva['macro_ops']} "
+            f"macro-ops, {tva['uops']} µops, scoreboard "
+            f"{tva['scoreboard_cycles']} / squash "
+            f"{tva['scoreboard_squash_cycles']} cycles == the CPU run's; a "
+            f"reading of this host: rdtsc median {tva['host_cycles_median']}"
+            f" cycles (ratios proxy {tva['ratio_proxy_vs_host']}, "
+            f"scoreboard {tva['ratio_scoreboard_vs_host']}, squash "
+            f"{tva['ratio_squash_vs_host']}); {t_a:.1f} s")
+        timings["val_timing_validate"] = {
+            "wall_s": t_a, **{f: tva[f] for f in same},
+            "host_cycles_median": tva["host_cycles_median"],
+            "ratio_scoreboard_vs_host": tva["ratio_scoreboard_vs_host"]}
+        # (b) and (c)'s window, for their child process
+        lift = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_val_bc_"),
+                            "lift.pkl")
+        with open(lift, "wb") as f:
+            pickle.dump(memo.memo[memo.key(
+                "capture_and_lift", hd.build_tools(VAL["workload"]), (),
+                {})], f)
+        marks("22 (a) timing_validate")
+
+        # (d) diff_artifacts in fp mode
+        t0 = time.monotonic()
+        out = os.path.join(d, "da.json")
+        _cli_stdout(diff_artifacts.main, [
+            "--mode", "fp", "--workloads", VAL["fp_workload"], "--trials",
+            str(VAL["fp_trials"]), "--out", out, *plat])
+        t_d = time.monotonic() - t0
+        da = _read_json(out)
+        row = da["workloads"][VAL["fp_workload"]]
+        if "error" in row or "summary" not in da:
+            fail(f"(d) diff_artifacts: {row}")
+        esc = escalations(row, "(d) diff_artifacts")
+        log(f"(d) diff_artifacts --mode fp {VAL['fp_workload']}, "
+            f"{VAL['fp_trials']} trials: host AVF {row['host_avf']}, device "
+            f"AVF {row['device_avf']}, agreement {row['agreement_exact']}, "
+            f"escalations {esc}, {row.get('uops')} µops; {t_d:.1f} s")
+        timings["val_diff_fp"] = {"wall_s": t_d, **{
+            k: row[k] for k in ("host_avf", "device_avf", "agreement_exact",
+                                "agreement_vulnerable")}, **esc}
+        marks("22 (d) diff_artifacts")
+
+        # (e) threeway_diff: the sort.c golden, refused unless this
+        # machine's gcc builds gem5's binary
+        t0 = time.monotonic()
+        golden = _read_json(VAL["golden"])
+        wl = threeway_diff.golden_workload(golden)
+        with open(hd.build_tools(wl).workload, "rb") as f:
+            sha = hashlib.sha256(f.read()).hexdigest()
+        log(f"(e) {wl} built here: sha256 {sha[:12]}; the golden's "
+            f"{golden['binary_sha'][:12]}")
+        before = dict(memo.calls)
+        children: list = []
+        run = subprocess.run
+
+        def seen_run(cmd, *a, **kw):
+            if str(cmd[0]).endswith(("hostsfi", "nativetrace")):
+                children.append(cmd[0])
+            return run(cmd, *a, **kw)
+
+        subprocess.run = seen_run
+        try:
+            if sha != golden["binary_sha"]:
+                try:
+                    threeway_diff.main(["--golden", VAL["golden"], "--out",
+                                        os.path.join(d, "tw.json"), *plat])
+                    fail("(e) threeway_diff ran on another binary")
+                except threeway_diff.BinaryMismatch as e:
+                    msg = str(e)
+            else:
+                tw = {}
+                trimmed = dict(golden,
+                               trials=golden["trials"][:VAL["golden_trials"]])
+                path = os.path.join(d, "golden.json")
+                with open(path, "w") as f:
+                    json.dump(trimmed, f)
+                for name, extra in (("card", plat),
+                                    ("cpu", ["--platform", "cpu"])):
+                    out = os.path.join(d, f"tw_{name}.json")
+                    _cli_stdout(threeway_diff.main,
+                                ["--golden", path, "--out", out, *extra])
+                    tw[name] = _read_json(out)
+        finally:
+            subprocess.run = run
+        calls = {k: memo.calls[k] - before[k] for k in memo.calls}
+        if sha != golden["binary_sha"]:
+            if sum(calls.values()) or children:
+                fail(f"(e) the refusal started work: {calls}, {children}")
+            want = (f"built {wl} sha {sha[:12]} != golden artifact's "
+                    f"{golden['binary_sha'][:12]}")
+            proc = subprocess.run(
+                [sys.executable, "-m", "shrewd_tpu_torch.tools.threeway_diff",
+                 "--golden", VAL["golden"], "--out",
+                 os.path.join(d, "tw_cli.json"), *plat],
+                capture_output=True, text=True)
+            if not msg.startswith(want) or proc.returncode == 0 or \
+                    want not in proc.stderr or \
+                    os.path.exists(os.path.join(d, "tw_cli.json")):
+                fail(f"(e) refusal: {msg!r}; python -m rc "
+                     f"{proc.returncode}: {proc.stderr[-1000:]}")
+            log(f"(e) threeway_diff refuses another binary before any work "
+                f"(no run_host, capture or run_device call, no ptrace child;"
+                f" python -m rc {proc.returncode}): {msg}")
+            timings["val_threeway"] = {"refused": True, "sha": sha,
+                                       "golden_sha": golden["binary_sha"],
+                                       "rc": proc.returncode}
+        else:
+            scrubbed = [{k: v for k, v in tw[n].items() if k != "card"}
+                        for n in ("card", "cpu")]
+            if scrubbed[0] != scrubbed[1]:
+                fail(f"(e) threeway card {tw['card']['tallies']} != CPU "
+                     f"{tw['cpu']['tallies']}")
+            log(f"(e) threeway_diff on {VAL['golden_trials']} golden trials:"
+                f" tallies {tw['card']['tallies']}, agreement "
+                f"{tw['card']['agreement_exact']}, == the CPU run's")
+            timings["val_threeway"] = {"refused": False, "sha": sha,
+                                       "tallies": tw["card"]["tallies"]}
+        timings["val_threeway"]["wall_s"] = time.monotonic() - t0
+        marks("22 (e) threeway_diff")
+
+    finally:
+        memo.close()
+        shutil.rmtree(d, ignore_errors=True)
+    timings["validation_phase_s"] = time.monotonic() - t_phase
+    return {"timings": timings, "lift": lift}
+
+
+def validation_child_part(torch, card, lift: str) -> dict:
+    """Phase 22 (b) and (c), ``tools.timing_effect`` and
+    ``tools.protect_validate`` on the window phase 22 (a) lifted (its
+    capture shared through ``HostMemo``) → the timings, K1's launches and
+    K1's largest difference from its plain version.  (b): K1's count
+    zeroed just before the tool, one launch a ``run_keys``; (c): no K1
+    launch, every lane on the memmap dense replay, the rc its ``pass``
+    gives.  Each held (config, structure)'s first ``VAL["held"]`` outcomes
+    are held against the CPU's (a spawned process beside the card's
+    runs)."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops import taint_cuda
+    from shrewd_tpu_torch.tools import protect_validate, timing_effect
+    from shrewd_tpu_torch.utils import prng
+
+    with open(lift, "rb") as f:
+        trace, meta = pickle.load(f)
+    shutil.rmtree(os.path.dirname(lift), ignore_errors=True)
+    plat = ["--platform", "cpu"] if NS_DEVICE == "cpu" else []
+    held = VAL["held"]
+    te_keys = prng.trial_keys(prng.campaign_key(17, "cpu"), held).numpy()
+    pv_keys = prng.trial_keys(prng.campaign_key(77, "cpu"), held).numpy()
+    pv_cfg = cfg_key(O3Config(shadow_model="fupool"))
+    jobs = [(cfg_key(cfg), VAL["structure"], te_keys, False)
+            for cfg in timing_effect.models().values()] + \
+        [(pv_cfg, "fu", pv_keys, True)]
+    pool = cf.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    fut = pool.submit(val_cpu_outcomes, trace, meta, jobs)
+    memo = HostMemo()
+    memo.memo[memo.key("capture_and_lift", hd.build_tools(VAL["workload"]),
+                       (), {})] = (trace, meta)
+    kept = KeptOutcomes(held)
+    d = tempfile.mkdtemp(prefix="chip_smoke_val_bc_")
+    try:
+        # (b) timing_effect, K1's count zeroed just before it
+        probe = K1Probe(torch)
+        probe.reset()
+        t0 = time.monotonic()
+        out = os.path.join(d, "te.json")
+        _cli_stdout(timing_effect.main, [
+            "--workload", VAL["workload"], "--trials", str(VAL["trials"]),
+            "--out", out, *plat])
+        t_b = time.monotonic() - t0
+        n_b, max_err = probe.read("(b) timing_effect")
+        probe.close()
+        te = _read_json(out)
+        n_runs = len(te["structures"]) * 3
+        if n_runs != 12 or n_b != n_runs:
+            fail(f"(b) K1 launched {n_b} times for {n_runs} run_keys")
+        for s, row in te["structures"].items():
+            for m in ("proxy", "scoreboard", "squash"):
+                if sum(row[m]["tally"]) != VAL["trials"]:
+                    fail(f"(b) {s} {m}: tally {row[m]['tally']}")
+        log(f"(b) timing_effect {VAL['workload']}, {VAL['trials']} trials: "
+            f"{te['window_uops']} µops, AVF proxy / scoreboard / squash "
+            + "; ".join(f"{s} {r['proxy']['avf']} / "
+                        f"{r['scoreboard']['avf']} / {r['squash']['avf']}"
+                        for s, r in te["structures"].items())
+            + f"; K1 {n_b} launches, one a run_keys, == plain on the first; "
+            f"{t_b:.1f} s")
+
+        # (c) protect_validate: every lane on the memmap dense replay
+        taint_cuda.taint_fast_cuda.launches = 0
+        t0 = time.monotonic()
+        out = os.path.join(d, "pv.json")
+        rc, _, err = _cli_run(protect_validate.main, [
+            "--workload", VAL["workload"], "--trials", str(VAL["trials"]),
+            "--out", out, *plat])
+        t_c = time.monotonic() - t0
+        pv = _read_json(out)
+        leg = pv["shadow_leg"]
+        if rc != (0 if pv["pass"] else 1):
+            fail(f"(c) protect_validate rc {rc} with pass {pv['pass']}: "
+                 f"{err[-2000:]}")
+        if taint_cuda.taint_fast_cuda.launches:
+            fail(f"(c) K1 launched {taint_cuda.taint_fast_cuda.launches} "
+                 "times on memmap kernels")
+        if sum(leg["protected_tally"]) != VAL["trials"]:
+            fail(f"(c) protected tally {leg['protected_tally']}")
+        log(f"(c) protect_validate {VAL['workload']}, {VAL['trials']} "
+            f"trials: rc {rc}, pass {pv['pass']} (shadow leg "
+            f"{leg['pass']}: predicted SDC {leg['predicted']['sdc']}, "
+            f"measured {leg['measured']['sdc']}, CI "
+            f"{leg['measured_ci95']['sdc']}; parity leg "
+            f"{pv['parity_leg']['pass']}); tallies unprotected "
+            f"{leg['unprotected_tally']}, protected "
+            f"{leg['protected_tally']}; no K1 launch (memmap: dense); "
+            f"{t_c:.1f} s")
+
+        # the CPU side: the held keys, lane for lane
+        t0 = time.monotonic()
+        for (cfg, s, _k, _m), want in zip(jobs, fut.result()):
+            if (cfg, s) not in kept.kept or \
+                    kept.kept[(cfg, s)].tolist() != want:
+                fail(f"(b)/(c) {s} under {cfg[:120]}: the card's first "
+                     f"{held} outcomes != the CPU's")
+        log(f"(b), (c): the first {held} outcomes of {VAL['structure']} "
+            "under the three timing models and of the protected fu leg == "
+            f"the CPU's (waited {time.monotonic() - t0:.1f} s for the CPU)")
+    finally:
+        kept.close()
+        memo.close()
+        pool.shutdown()
+        shutil.rmtree(d, ignore_errors=True)
+    if memo.calls["capture_and_lift"] != 2:
+        fail(f"(b), (c): {memo.calls['capture_and_lift']} lifts, not one "
+             "each from (a)'s capture")
+    return {"timings": {
+        "card": card,
+        "val_timing_effect": {
+            "wall_s": t_b, "k1_launches": n_b,
+            "window_uops": te["window_uops"],
+            "avf": {s: {m: r[m]["avf"] for m in ("proxy", "scoreboard",
+                                                 "squash")}
+                    for s, r in te["structures"].items()}},
+        "val_protect_validate": {
+            "wall_s": t_c, "rc": rc, "pass": pv["pass"],
+            "unprotected_tally": leg["unprotected_tally"],
+            "protected_tally": leg["protected_tally"]}},
+        "launches": {"timing_effect (22 b)": n_b}, "k1_max_err": max_err}
+
+
+def validation_child_main(result: str, lift: str) -> int:
+    """``--validation-child RESULT LIFT``: phase 22 (b) and (c)'s child
+    process, started by ``main`` once the lanes end and run beside phases
+    16-17 (it starts no ptrace capture: the window comes from LIFT);
+    writes ``validation_child_part``'s result to RESULT as JSON."""
+    import os
+
+    import torch
+
+    from shrewd_tpu_torch import native
+    from shrewd_tpu_torch.ops import taint_cuda
+
+    taint_cuda.build()
+    native.build()
+    doc = validation_child_part(torch, card_line(), lift)
+    tmp = f"{result}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, result)
+    return 0
+
+def strat_cpu_first(batch: int) -> dict:
+    """Phase 23's CPU side, in a spawned process of its own (one torch
+    thread), beside the card's run: each tier's first batch of
+    ``tools.strat_effect`` on the CPU → {tier: stratified tally}."""
+    import os
+
+    import torch
+
+    from shrewd_tpu_torch.tools import strat_effect
+    from shrewd_tpu_torch.utils import prng
+
+    os.nice(10)
+    torch.set_num_threads(1)
+    out = {}
+    for name, kernel, structure, cap, seed0 in strat_effect.tiers("cpu"):
+        keys = prng.trial_keys(prng.campaign_key(seed0, "cpu"),
+                               batch if cap is None else min(batch, cap))
+        out[name] = kernel.run_keys_stratified(keys, structure)[0].tolist()
+    return out
+
+
+def strat_phase(torch, marks, card) -> dict:
+    """Phase 23, ``tools.strat_effect`` on the card at ``STRAT`` → the
+    timings, K1's launches (one a batch of each O3 tier) and K1's largest
+    difference from its plain version; each tier's first batch of
+    stratified tallies held against the same batch on the CPU."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import os
+    import tempfile
+
+    from shrewd_tpu_torch.models.tier import TierKernel
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.tools import strat_effect
+
+    t_phase = time.monotonic()
+    plat = ["--platform", "cpu"] if NS_DEVICE == "cpu" else []
+    pool = cf.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    fut = pool.submit(strat_cpu_first, STRAT["batch"])
+    # the first batch of each (kernel, structure) the tool runs
+    first: dict = {}
+    saved = {cls: cls.run_keys_stratified for cls in (TrialKernel,
+                                                      TierKernel)}
+    for cls, real in saved.items():
+        def kept(kernel, keys, structure=None, _real=real):
+            st = _real(kernel, keys, structure)
+            first.setdefault((type(kernel).__name__, structure),
+                             st[0].tolist())
+            return st
+        cls.run_keys_stratified = kept
+    probe = K1Probe(torch)
+    probe.reset()
+    d = tempfile.mkdtemp(prefix="chip_smoke_strat_")
+    out = os.path.join(d, "strat.json")
+    t0 = time.monotonic()
+    try:
+        _cli_stdout(strat_effect.main, [
+            "--batches", str(STRAT["batches"]), "--batch",
+            str(STRAT["batch"]), "--out", out, *plat])
+    finally:
+        for cls, real in saved.items():
+            cls.run_keys_stratified = real
+    t_run = time.monotonic() - t0
+    n, max_err = probe.read("23 strat_effect")
+    probe.close()
+    doc = _read_json(out)
+    os.remove(out)
+    os.rmdir(d)
+    if n != 2 * STRAT["batches"]:
+        fail(f"23: K1 launched {n} times for 2 O3 tiers x "
+             f"{STRAT['batches']} batches")
+    t0 = time.monotonic()
+    cpu = fut.result()
+    pool.shutdown()
+    kinds = {"o3": "TrialKernel", "mesi": "MesiKernel", "noc": "NocKernel"}
+    for name, want in cpu.items():
+        kind, structure = name.split(":")
+        got = first.get((kinds[kind], structure))
+        if got != want:
+            fail(f"23 {name}: the first batch on the card {got} != the "
+                 f"CPU's {want}")
+    if list(doc["tiers"]) != list(cpu):
+        fail(f"23: tiers {list(doc['tiers'])}")
+    log("23 strat_effect at batch " + str(STRAT["batch"]) + ", "
+        + str(STRAT["batches"]) + " batches: trials-reduction factor "
+        + ", ".join(f"{k} {v['trials_reduction_factor']}"
+                    for k, v in doc["tiers"].items())
+        + f"; each tier's first batch == the CPU's (waited "
+        f"{time.monotonic() - t0:.1f} s for it); K1 {n} launches, one a "
+        f"batch of each O3 tier, == plain on the first; {t_run:.1f} s")
+    marks("23 strat_effect")
+    return {"timings": {
+        "card": card, "strat_s": t_run, "batches": STRAT["batches"],
+        "batch": STRAT["batch"], "k1_launches": n,
+        "tiers": doc["tiers"],
+        "strat_phase_s": time.monotonic() - t_phase},
+        "launches": {"strat_effect o3 (23)": n}, "k1_max_err": max_err}
+
+
+def _cli_run(main, argv) -> tuple[int, str, str]:
+    """Run one of the port's CLI ``main``s in-process → (rc, its standard
+    output, its standard error)."""
     import contextlib
     import io
 
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _cli_stdout(main, argv) -> str:
+    """Run one of the port's CLI ``main``s in-process; rc 0 or fail; its
+    standard output."""
+    rc, out, err = _cli_run(main, argv)
     if rc != 0:
-        fail(f"{argv}: rc {rc}: {err.getvalue()[-2000:]}")
-    return out.getvalue()
+        fail(f"{argv}: rc {rc}: {err[-2000:]}")
+    return out
 
 
 def escalations(rep: dict, what: str) -> dict:
@@ -4503,6 +5094,48 @@ def join_lanes(d: str, t_start: float) -> dict:
         results["lane_s"][name] = doc["wall_s"]
     stop_lanes()
     return results
+
+
+def start_validation_child(lift: str):
+    """Start phase 22 (b) and (c)'s child process (``--validation-child``),
+    the leader of a process group of its own that ``stop_lanes`` kills
+    whole → (its directory, its process)."""
+    import os
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_val_child_")
+    with open(os.path.join(d, "out"), "w") as out, \
+            open(os.path.join(d, "err"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--validation-child",
+             os.path.join(d, "result.json"), lift], stdout=out, stderr=err,
+            start_new_session=True)
+    _lanes.append(("validation_child", proc))
+    return d, proc
+
+
+def join_validation_child(d: str, proc) -> dict:
+    """Wait for phase 22 (b) and (c)'s child, print its output, fail if it
+    failed → its result."""
+    import os
+    import shutil
+
+    try:
+        rc = proc.wait(timeout=LANE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    log("phase 22 (b) and (c), run in a child process beside phases "
+        "16-17:")
+    for name, stream in (("out", sys.stdout), ("err", sys.stderr)):
+        with open(os.path.join(d, name)) as f:
+            stream.write(f.read())
+        stream.flush()
+    if rc != 0:
+        stop_lanes()
+        fail(f"phase 22 (b) and (c) exited rc {rc}")
+    doc = _read_json(os.path.join(d, "result.json"))
+    shutil.rmtree(d, ignore_errors=True)
+    return doc
 
 
 def lane_main(name: str, result: str) -> int:
@@ -4848,9 +5481,12 @@ def main() -> int:
     cli_run, matrix_run = lanes["cli_phase"], lanes["matrix_phase"]
     fed_run, cert_run = lanes["fed_phase"], lanes["certify_phase"]
     ns_run = lanes["northstar_phase"]
+    val_run, strat_run = lanes["validation_phase"], lanes["strat_phase"]
     cli_run.pop("until_stats")
     obs_run = obs_phase(os.path.join(lanes_dir, "keep"), card)
     shutil.rmtree(lanes_dir, ignore_errors=True)
+    # phase 22 (b) and (c) in a child process beside phases 16-17
+    child_dir, child = start_validation_child(val_run["lift"])
     cert_run["timings"]["certify_c"] = obs_run
     log(json.dumps({"timings": cli_run["timings"]}))
     log(json.dumps({"timings": cert_run["timings"]}))
@@ -4858,12 +5494,14 @@ def main() -> int:
     log(json.dumps({"timings": matrix_run["timings"]}))
     log(json.dumps({"timings": fed_run["timings"]}))
     log(json.dumps({"timings": ns_run["timings"]}))
+    log(json.dumps({"timings": val_run["timings"]}))
+    log(json.dumps({"timings": strat_run["timings"]}))
     if fed_run["front"] != matrix_run["front"]:
         fail("19 (c): the federated matrix's Pareto front differs from "
              "phase 18's solo front")
     log(f"19 (c): the federated front == phase 18's solo front, bitwise "
         f"({len(fed_run['front'])} groups)")
-    log(f"phases 11-15 and 18-21 in five processes: "
+    log(f"phases 11-15 and 18-23 in five processes: "
         f"{time.monotonic() - t_lanes:.1f} s (lanes "
         + ", ".join(f"{n} {s:.1f} s" for n, s in lanes["lane_s"].items())
         + ")")
@@ -4872,6 +5510,8 @@ def main() -> int:
     log(json.dumps({"timings": ingest_run["timings"]}))
     ckpt_run = checkpoint_phase(torch, marks, card)
     log(json.dumps({"timings": ckpt_run["timings"]}))
+    child_run = join_validation_child(child_dir, child)
+    log(json.dumps({"timings": child_run["timings"]}))
     paths["launches"].update(cli_run["launches"])
     paths["launches"].update(mesh_run["launches"])
     paths["launches"].update(ingest_run["launches"])
@@ -4880,6 +5520,8 @@ def main() -> int:
     paths["launches"].update(fed_run["launches"])
     paths["launches"].update(cert_run["launches"])
     paths["launches"].update(ns_run["launches"])
+    paths["launches"].update(child_run["launches"])
+    paths["launches"].update(strat_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
@@ -4889,7 +5531,8 @@ def main() -> int:
                   mesh_run["k1_max_err"], ingest_run["k1_max_err"],
                   ckpt_run["k1_max_err"], matrix_run["k1_max_err"],
                   fed_run["k1_max_err"], cert_run["k1_max_err"],
-                  ns_run["k1_max_err"])
+                  ns_run["k1_max_err"], child_run["k1_max_err"],
+                  strat_run["k1_max_err"])
     k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),
@@ -4915,6 +5558,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--lane":
         sys.exit(lane_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--validation-child":
+        sys.exit(validation_child_main(sys.argv[2], sys.argv[3]))
     if len(sys.argv) >= 3 and sys.argv[1] == "--fed-cli":
         sys.exit(fed_cli_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -1,7 +1,9 @@
 """Card tests of the port's Hopper kernels (``ops/taint_cuda.py``): the
 fast pass (K1) and the chunk kernel (K2) with the chunked path around it;
 and of the tier kernels (cache, MESI, NoC), whose step loops and scatters
-on the card must give their CPU outcomes.
+on the card must give their CPU outcomes; and of the layers and tools
+above them, each run on the card against the same run on the CPU (the
+validation tools from one capture and one host run, ``one_host_run``).
 
 Each test needs a CUDA card and skips without one.  They import torch and
 the port only (no JAX), so on a machine with the card run them as
@@ -12,6 +14,7 @@ the port only (no JAX), so on a machine with the card run them as
 bitwise against its plain PyTorch version on the same device tensors.
 """
 
+import contextlib
 import shutil
 
 import numpy as np
@@ -1469,3 +1472,104 @@ def test_north_star_serial_arm_on_card_equals_cpu(cuda):
     assert card["card"] and cpu["card"] is None
     assert scrub(card) == scrub(cpu)
     assert card["total_trials"] > 0
+
+
+@contextlib.contextmanager
+def one_host_run():
+    """Within the block, the port's ``hostdiff`` captures and lifts each
+    (binary, arguments) once and runs the host's ptrace SFI once per
+    coordinate list: two captures of one binary differ, and so may two
+    host runs, so a card run and a CPU run take the same ones."""
+    from shrewd_tpu_torch.ingest import hostdiff as hd
+
+    saved = {}
+    memo: dict = {}
+
+    def once(name, real):
+        def run(paths, *a, **kw):
+            key = (name, str(paths.workload),
+                   np.asarray(a[0]).tobytes() if name == "run_host" else a,
+                   tuple(sorted((k, repr(v)) for k, v in kw.items())))
+            if key not in memo:
+                memo[key] = real(paths, *a, **kw)
+            return memo[key]
+        return run
+
+    for name in ("capture_and_lift", "capture_and_lift_to_output",
+                 "run_host"):
+        saved[name] = getattr(hd, name)
+        setattr(hd, name, once(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name, real in saved.items():
+            setattr(hd, name, real)
+
+
+# each validation tool at a small size: (arguments, fields read from the
+# host's own clock, which card and CPU runs do not share)
+VALIDATION = {
+    "timing_validate": ([], ("host_cycles_median", "host_ipc_macro",
+                             "ratio_proxy_vs_host",
+                             "ratio_scoreboard_vs_host",
+                             "ratio_squash_vs_host")),
+    "timing_effect": (["--workload", "workloads/rotmix.c", "--trials",
+                       "256"], ()),
+    "protect_validate": (["--trials", "256"], ()),
+    "strat_effect": (["--batches", "2", "--batch", "128"], ()),
+    "diff_artifacts": (["--workloads", "workloads/rotmix.c", "--mode",
+                        "output", "--trials", "8"], ("seconds",)),
+    "threeway_diff": (["--golden", "GOLDEN"], ()),
+}
+
+
+@needs_toolchain
+@pytest.mark.parametrize("tool", sorted(VALIDATION))
+def test_validation_tool_on_card_equals_cpu(cuda, tmp_path, tool):
+    """Each validation tool with ``--platform gpu`` gives the CPU's
+    document, from the same captures and host runs, once the card's
+    identity and the fields read from the host's clock are set aside.
+    ``threeway_diff`` reads the rotmix golden trimmed to 16 trials; where
+    this machine's gcc does not build gem5's binary, both runs refuse it
+    with the same message."""
+    import importlib
+    import json
+
+    mod = importlib.import_module(f"shrewd_tpu_torch.tools.{tool}")
+    argv, host_fields = VALIDATION[tool]
+    if "GOLDEN" in argv:
+        from shrewd_tpu_torch.ingest.hostdiff import REPO
+        doc = json.loads((REPO / "GEM5_GOLDEN_ROTMIX_r04.json").read_text())
+        doc["trials"] = doc["trials"][:16]
+        (tmp_path / "golden.json").write_text(json.dumps(doc))
+        argv = ["--golden", str(tmp_path / "golden.json")]
+    docs, refused = {}, {}
+    with one_host_run():
+        for platform in ("gpu", "cpu"):
+            out = tmp_path / f"{platform}.json"
+            try:
+                rc = mod.main([*argv, "--out", str(out), "--platform",
+                               platform])
+            except RuntimeError as e:
+                if tool != "threeway_diff":
+                    raise
+                refused[platform] = str(e)
+                continue
+            assert rc in (0, 1)
+            docs[platform] = (rc, json.loads(out.read_text()))
+    if refused:
+        assert not docs and refused["gpu"] == refused["cpu"]
+        assert "golden artifact's" in refused["gpu"]
+        return
+
+    def scrub(doc):
+        if isinstance(doc, dict):
+            return {k: scrub(v) for k, v in doc.items()
+                    if k not in ("card",) + host_fields}
+        if isinstance(doc, list):
+            return [scrub(v) for v in doc]
+        return doc
+
+    (rc, card), (cpu_rc, cpu) = docs["gpu"], docs["cpu"]
+    assert card["card"] and cpu["card"] is None
+    assert rc == cpu_rc and scrub(card) == scrub(cpu)

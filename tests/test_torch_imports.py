@@ -23,11 +23,16 @@ the CPU, ``tools.graftlint`` over the port's tree and ``tools.obs`` over
 the fleet's artifacts.  A second no-jax subprocess runs the north-star
 tools, ``tools.northstar`` (serial, then ``--fleet --also-serial``) and
 ``tools.simpoint_avf``, on ``workloads/rotmix.c`` with ``--platform
-cpu``.  The fleet's mesh, a
+cpu``, and a no-jax subprocess for each validation tool
+(``timing_validate``, ``timing_effect``, ``protect_validate``,
+``strat_effect``, ``diff_artifacts``, ``threeway_diff``) runs it at a
+small size with ``--platform cpu``; without ``--platform`` each raises
+before any work on a host without a card.  The fleet's mesh, a
 federation pod's mesh, ``DesignSpace`` and the thermal factorization
 default to the card too; the port's version is the reference's."""
 
 import functools
+import json
 import os
 import shutil
 import subprocess
@@ -345,6 +350,51 @@ print("ok")
 """
 
 
+# the validation tools, each in a no-jax process of its own at a small
+# size on the CPU: (tool, its arguments, a check of its document)
+_VALIDATION = {
+    "timing_validate": ([], "doc['uops'] == doc['proxy_cycles'] > 0"),
+    "timing_effect": (["--workload", "workloads/rotmix.c", "--trials", "8"],
+                      "sum(doc['structures']['fu']['squash']['tally']) == 8"),
+    "protect_validate": (["--workload", "workloads/rotmix.c", "--trials",
+                          "32"],
+                         "sum(doc['shadow_leg']['protected_tally']) == 32"),
+    "strat_effect": (["--batches", "1", "--batch", "16"],
+                     "len(doc['tiers']) == 6"),
+    "diff_artifacts": (["--workloads", "workloads/rotmix.c", "--trials",
+                        "2"], "doc['summary']['workloads_ok'] == 1"),
+    "threeway_diff": (["--golden", "GOLDEN"],
+                      "doc['coords'] == 2 and doc['binary_sha']"),
+}
+
+_NO_JAX_VALIDATION = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import contextlib, io, importlib, json, os, tempfile
+tool, argv, check = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+mod = importlib.import_module(f"shrewd_tpu_torch.tools.{tool}")
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stderr(io.StringIO()), \
+        contextlib.redirect_stdout(io.StringIO()):
+    if "GOLDEN" in argv:
+        with open("GEM5_GOLDEN_ROTMIX_r04.json") as f:
+            golden = json.load(f)
+        golden["trials"] = golden["trials"][:2]
+        with open(os.path.join(d, "golden.json"), "w") as f:
+            json.dump(golden, f)
+        argv[argv.index("GOLDEN")] = os.path.join(d, "golden.json")
+    out = os.path.join(d, "out.json")
+    rc = mod.main([*argv, "--out", out, "--platform", "cpu"])
+    doc = json.load(open(out))
+assert rc in (0, 1) and doc["card"] is None, (rc, doc)
+assert eval(check), doc
+loaded = sorted(m for m in sys.modules
+                if m == "shrewd_tpu" or m.startswith("shrewd_tpu."))
+assert not loaded, loaded
+print("ok")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
@@ -368,6 +418,35 @@ def test_north_star_tools_run_without_jax_or_the_reference():
                           text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.skipif(not all(shutil.which(x) for x in
+                             ("gcc", "g++", "objdump", "nm")),
+                    reason="host toolchain required")
+@pytest.mark.parametrize("tool", sorted(_VALIDATION))
+def test_validation_tools_run_without_jax_or_the_reference(tool):
+    argv, check = _VALIDATION[tool]
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_VALIDATION, tool,
+                           json.dumps(argv), check], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("tool", sorted(_VALIDATION))
+def test_validation_tools_default_to_the_card(tool, tmp_path):
+    """Without ``--platform`` each tool runs on the card, and without one
+    it raises before any work: no document is written."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: tests/test_torch_cuda.py runs "
+                    "the tools there")
+    mod = importlib.import_module(f"shrewd_tpu_torch.tools.{tool}")
+    out = tmp_path / "out.json"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(["--out", str(out)])
+    assert not out.exists()
 
 
 def test_trial_kernel_defaults_to_the_card():
