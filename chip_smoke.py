@@ -315,7 +315,7 @@ JAX.  Phases, each fatal:
     shared by its card and CPU runs.  (a), (d) and (e), which capture or
     ptrace, run in the ``ns`` lane after phase 21; (b) and (c), ~100 s
     and ~20 s of step loops over the 6882-µop window, run in a child
-    process of this script (``python3 chip_smoke.py --validation-child
+    process of this script (``python3 chip_smoke.py --child validation
     RESULT LIFT``) beside phases 16-17 once the lanes end, on the window
     (a) lifted (they start no capture): (a) ``tools.timing_validate``: rc
     0, the macro-ops, µops, proxy cycles and both scoreboard cycle counts
@@ -346,6 +346,22 @@ JAX.  Phases, each fatal:
     version, and each tier's first batch of stratified tallies (O3
     regfile and fu, MESI state, dir and tbe, the NoC router) equal to
     the same batch on the CPU (a spawned process beside the card's run).
+24. ``tools.bigwindow`` on ``lzss.c`` (``WINDOW``) at the tool's two
+    smaller lengths: (a) ``--build`` in the ``ns`` lane after phase 22,
+    one capture cut at 50000 macro-steps, lifted at 4096 and 65536 µops
+    into the tool's cache: the capture cut, each window at least its
+    length; (b) and (c) in a child process beside phases 16-17
+    (``--child window RESULT``; they start no capture), each count zeroed
+    just before its run and printed after it: (b) the dense rate at 4096
+    (batch 131072, the warm call and one timed): K1 two launches, one a
+    ``run_keys``, the first bitwise equal to its plain version, no K2
+    launch; (c) the chunked rate at 4096 and 65536, chunk 16384 (1 and 5
+    chunks, batch 16384 each): K2 one launch a fast wave, the first wave
+    of each chunk length bitwise equal to its plain version, no K1
+    launch; the first 1024 keys of each run equal, lane for lane, to the
+    port's run of the same window on the CPU (two spawned processes
+    beside the card's runs), and the chunked outcomes on the 4096-µop
+    window equal to the dense ones.
 
 Batch (e) of phase 4 holds K1 against its plain version on the lanes the
 structure path draws: 2048 each of fu, rob, iq, lsq and latch from the
@@ -354,15 +370,17 @@ FU pool's coverage.
 
 Phases 1-10 run alone in this process, so the kernels line's times
 (phases 6, 9 and 10) are taken with nothing else on the card.  Phases 13
-+ 20, 14 + 18, 19 + 23 and 21 + 22 then run in four child processes of
-this script, one lane each (``python3 chip_smoke.py --lane NAME RESULT``: its
-own launch counters, each zeroed before its path as here; the lane's
-output is printed when it ends and its results come back as JSON),
++ 20, 14 + 18, 19 + 23 and 21 + 22 + 24 (a) then run in four child
+processes of this script, one lane each (``python3 chip_smoke.py --lane
+NAME RESULT``: its own launch counters, each zeroed before its path as
+here; the lane's output is printed when it ends and its results come back
+as JSON),
 beside this process's phases 11, 12 and 15.  Phases 16 and 17, which
 trace binaries with ptrace, run after the lanes end, with phase 22 (b)
-and (c) (no capture) beside them; the captures of phases 21 and 22, one after
-another in one lane, are the only ones while the lanes run.  The seconds
-of phases 11-23 are readings taken beside one another.
+and (c) and phase 24 (b) and (c) (no capture) in two child processes
+beside them; the captures of phases 21, 22 and 24, one after another in
+one lane, are the only ones while the lanes run.  The seconds of phases
+11-24 are readings taken beside one another.
 
 Each phase prints its seconds.  The line before the last is the kernels'
 JSON record (K1 ``taint_fast`` and K2 ``taint_chunk``); the last line is
@@ -637,13 +655,26 @@ VAL = dict(workload="workloads/sort.c", trials=8192, held=1024,
            structure="iq", fp_workload="workloads/fpmix.c", fp_trials=8,
            golden="GEM5_GOLDEN_r04.json", golden_trials=64)
 STRAT = dict(batch=512, batches=4)
+# phase 24: tools.bigwindow on lzss.c at the tool's two smaller lengths
+# (524288 runs through the tool alone: its dense warm call took 205 s on
+# an H100 80GB HBM3 at 700 W): (a) the build, one capture cut at
+# max_steps (~34,600 macro-steps lift to 65546 µops on gcc 12.2's build),
+# in the ns lane;
+# (b) the dense rate at 4096 and (c) the chunked rate at both lengths,
+# chunk 16384 (4096: 1 chunk; 65546: 5), at the tool's batches on the
+# card, one timed call after the warm one, in a child process beside
+# phases 16-17; the first `held` keys of each run held card = CPU.
+# NS_DEVICE is where it runs.
+WINDOW = dict(workload="workloads/lzss.c", lengths=(4096, 65536),
+              max_steps=50000, dense=4096, chunk=16384, reps=1, held=1024)
 
 LANES = {"cli": ("cli_phase", "certify_phase"),
          "tiers": ("tier_phase", "matrix_phase"),
          "fed": ("fed_phase", "strat_phase"),
-         "ns": ("northstar_phase", "validation_phase")}
+         "ns": ("northstar_phase", "validation_phase",
+                "window_build_phase")}
 LANE_PHASES = {"cli": "13 and 20", "tiers": "14 and 18", "fed": "19 and 23",
-               "ns": "21 and 22"}
+               "ns": "21, 22 and 24 (a)"}
 LANE_TIMEOUT_S = 900            # from the lanes' start to their last result
 _lanes: list = []               # (name, Popen) of the lanes started
 KEEP_DIR = None                 # in a lane: where phases leave artifacts
@@ -4175,16 +4206,15 @@ def northstar_phase(torch, marks, card) -> dict:
     for wl in a.workloads:
         hd.build_tools(wl)
     t_build = time.monotonic() - t0
-    captures: list = []
+    attempts: list = []         # (seconds, rc) of each tracer run
     run = subprocess.run
 
     def timed_run(cmd, *args, **kw):
         t = time.monotonic()
-        try:
-            return run(cmd, *args, **kw)
-        finally:
-            if str(cmd[0]).endswith("nativetrace"):
-                captures.append(time.monotonic() - t)
+        proc = run(cmd, *args, **kw)
+        if str(cmd[0]).endswith("nativetrace"):
+            attempts.append((time.monotonic() - t, proc.returncode))
+        return proc
 
     subprocess.run = timed_run
     t0 = time.monotonic()
@@ -4193,9 +4223,14 @@ def northstar_phase(torch, marks, card) -> dict:
     finally:
         subprocess.run = run
     t_windows = time.monotonic() - t0
+    # one capture that reached its end a workload; a short one is taken
+    # again (hostdiff.run_tracer) and counted apart
+    captures = [s for s, rc in attempts if rc == 0]
+    retaken = len(attempts) - len(captures)
     if len(captures) != len(a.workloads) or any(
             len(w) != a.k for w in windows.values()):
-        fail(f"(a) {len(captures)} captures, windows "
+        fail(f"(a) {len(captures)} captures ({retaken} short ones taken "
+             f"again), windows "
              f"{ {wl: len(w) for wl, w in windows.items()} }")
     rows = []
     for wl, ws in windows.items():
@@ -4212,12 +4247,13 @@ def northstar_phase(torch, marks, card) -> dict:
     # each window spilled once (the fleet arm's tenants read these files)
     tenants = {name: (plan, wl, s) for name, plan, _w, wl, s in
                ns._fleet_tenants(a, windows, d)}
+    t_capture = sum(s for s, _rc in attempts)
     timings["ns_windows"] = {
-        "build_s": t_build, "capture_s": sum(captures),
-        "emulate_lift_s": t_windows - sum(captures), "windows": rows}
+        "build_s": t_build, "capture_s": t_capture, "retaken": retaken,
+        "emulate_lift_s": t_windows - t_capture, "windows": rows}
     log(f"(a) windows: builds {t_build:.1f} s, {len(captures)} captures "
-        f"{sum(captures):.1f} s, BBV + k-means + emulate + lift "
-        f"{t_windows - sum(captures):.1f} s")
+        f"{t_capture:.1f} s ({retaken} short ones taken again), BBV + "
+        f"k-means + emulate + lift {t_windows - t_capture:.1f} s")
     # (b)'s CPU side starts now, beside the card's arms
     pool = cf.ProcessPoolExecutor(
         max_workers=1, mp_context=multiprocessing.get_context("spawn"))
@@ -4866,11 +4902,17 @@ def validation_child_part(torch, card, lift: str) -> dict:
         "launches": {"timing_effect (22 b)": n_b}, "k1_max_err": max_err}
 
 
-def validation_child_main(result: str, lift: str) -> int:
-    """``--validation-child RESULT LIFT``: phase 22 (b) and (c)'s child
-    process, started by ``main`` once the lanes end and run beside phases
-    16-17 (it starts no ptrace capture: the window comes from LIFT);
-    writes ``validation_child_part``'s result to RESULT as JSON."""
+# the parts that run in child processes of this script beside phases
+# 16-17 (``--child PART RESULT [ARGS]``): none starts a ptrace capture
+CHILDREN = {"validation": ("validation_child_part", "22 (b) and (c)"),
+            "window": ("window_child_part", "24 (b) and (c)")}
+
+
+def child_main(part: str, result: str, *args: str) -> int:
+    """``--child PART RESULT [ARGS]``: one of ``CHILDREN``, started by
+    ``main`` once the lanes end and run beside phases 16-17 (phase 22's
+    window comes from ARGS, phase 24's from the tool's cache); writes the
+    part's result to RESULT as JSON."""
     import os
 
     import torch
@@ -4880,12 +4922,13 @@ def validation_child_main(result: str, lift: str) -> int:
 
     taint_cuda.build()
     native.build()
-    doc = validation_child_part(torch, card_line(), lift)
+    doc = globals()[CHILDREN[part][0]](torch, card_line(), *args)
     tmp = f"{result}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         json.dump(doc, f)
     os.replace(tmp, result)
     return 0
+
 
 def strat_cpu_first(batch: int) -> dict:
     """Phase 23's CPU side, in a spawned process of its own (one torch
@@ -4985,6 +5028,288 @@ def strat_phase(torch, marks, card) -> dict:
         "tiers": doc["tiers"],
         "strat_phase_s": time.monotonic() - t_phase},
         "launches": {"strat_effect o3 (23)": n}, "k1_max_err": max_err}
+
+
+def window_build_phase(torch, marks, card) -> dict:
+    """Phase 24 (a), ``tools.bigwindow --build`` in the ``ns`` lane after
+    phase 22 (the lane's captures one after another): ``WINDOW``'s
+    workload captured once under ptrace, cut at ``WINDOW["max_steps"]``
+    macro-steps, and lifted at each of ``WINDOW["lengths"]`` into the
+    tool's cache, where (b) and (c) read them → the timings and each
+    window's µops."""
+    import os
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch.tools import bigwindow
+
+    plat = ["--platform", "cpu"] if NS_DEVICE == "cpu" else []
+    d = tempfile.mkdtemp(prefix="chip_smoke_bw_")
+    out = os.path.join(d, "build.json")
+    t0 = time.monotonic()
+    try:
+        _cli_stdout(bigwindow.main, [
+            "--build", "--lengths", *map(str, WINDOW["lengths"]),
+            "--max-steps", str(WINDOW["max_steps"]), "--workload",
+            WINDOW["workload"], "--out", out, *plat])
+        t_build = time.monotonic() - t0
+        doc = _read_json(out)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    b = doc["build"]
+    uops = {n: b[f"lift_{n}"]["uops"] for n in WINDOW["lengths"]}
+    if not b["capture_truncated"] or any(u < n for n, u in uops.items()):
+        fail(f"24 (a): capture truncated {b['capture_truncated']}, windows "
+             f"{uops}")
+    if doc["card"] != (card if NS_DEVICE == "cuda" else None):
+        fail(f"24 (a): the document's card {doc['card']!r}")
+    log(f"24 (a) bigwindow --build {WINDOW['workload']}: capture "
+        f"{b['capture_steps']} macro-steps (cut at --max-steps "
+        f"{WINDOW['max_steps']}) in {b['capture_seconds']} s; "
+        + "; ".join(f"lift {n}: {b[f'lift_{n}']['uops']} µops, rate "
+                    f"{b[f'lift_{n}']['lift_rate']}, "
+                    f"{b[f'lift_{n}']['seconds']} s"
+                    for n in WINDOW["lengths"])
+        + f"; {t_build:.1f} s")
+    marks("24 (a) bigwindow --build")
+    return {"timings": {"card": card, "build_s": t_build, "build": b,
+                        "tools_s": doc["setup"].get("tools_seconds")},
+            "uops": uops}
+
+
+def window_cpu_outcomes(jobs, held: int) -> list:
+    """Phase 24's CPU side, in a spawned process of its own (one torch
+    thread), beside the card's runs: for each (window file, chunk — None
+    for the dense path) the outcomes of the first ``held`` keys of
+    ``tools.bigwindow``'s campaign key, regfile, on the CPU."""
+    import os
+
+    import torch
+
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops.chunked import ChunkedCampaign
+    from shrewd_tpu_torch.ops.trial import TrialKernel
+    from shrewd_tpu_torch.trace import format as tfmt
+    from shrewd_tpu_torch.utils import prng
+
+    os.nice(10)
+    torch.set_num_threads(1)
+    keys = prng.trial_keys(prng.campaign_key(0, "cpu"), held)
+    out = []
+    for path, chunk in jobs:
+        kernel = TrialKernel(tfmt.load(path)[0], O3Config(), device="cpu")
+        if chunk is None:
+            got = kernel.run_batch_hybrid(
+                kernel.sample_batch(keys, "regfile"), may_latch=False)
+        else:
+            got = ChunkedCampaign(kernel, chunk=chunk).outcomes_from_keys(
+                keys, "regfile")
+        out.append(np.asarray(got).tolist())
+    return out
+
+
+class ChunkProbe:
+    """The chunked path's instrumentation in phase 24 (c): each
+    ``outcomes_of_faults`` call's first ``n`` outcomes by window length and
+    its waves, the exact engine's waves, and the first K2 launch of each
+    chunk length, kept for the comparison with the plain version."""
+
+    def __init__(self, n: int):
+        from shrewd_tpu_torch.ops import chunked as CH
+
+        self.CH, self.cls = CH, CH.ChunkedCampaign
+        self.real = (CH.taint_chunk_cuda, self.cls.outcomes_of_faults,
+                     self.cls._trial_chunk)
+        launch, outcomes_of, trial_chunk = self.real
+        self.kept: dict = {}
+        self.first_wave: dict = {}
+        self.waves = self.exact_waves = 0
+
+        def k2(gold, tr, *a, **kw):
+            got = launch(gold, tr, *a, **kw)
+            self.first_wave.setdefault(tr.n, ((gold, tr, *a), kw, got))
+            return got
+
+        def keeping(camp, faults):
+            out = outcomes_of(camp, faults)
+            self.kept[camp.n] = out[:n].copy()
+            self.waves += camp.last_stats["waves"]
+            return out
+
+        def counted(camp, *a):
+            self.exact_waves += 1
+            return trial_chunk(camp, *a)
+
+        CH.taint_chunk_cuda = k2
+        self.cls.outcomes_of_faults = keeping
+        self.cls._trial_chunk = counted
+
+    def close(self) -> None:
+        (self.CH.taint_chunk_cuda, self.cls.outcomes_of_faults,
+         self.cls._trial_chunk) = self.real
+
+
+def window_child_part(torch, card) -> dict:
+    """Phase 24 (b) and (c), ``tools.bigwindow --rate`` on the windows (a)
+    built, in a child process beside phases 16-17 (no capture) → the
+    timings, the launches and the kernels' largest differences from their
+    plain versions.  (b) the dense rate at ``WINDOW["dense"]``, K1's count
+    zeroed just before it: one launch a ``run_keys`` (the warm call and
+    ``WINDOW["reps"]`` timed), the first bitwise equal to its plain
+    version, no K2 launch; (c) the chunked rate at every length, chunk
+    ``WINDOW["chunk"]``, K2's count zeroed just before it: one launch a
+    fast wave, the first wave of each chunk length bitwise equal to its
+    plain version, no K1 launch.  The first ``WINDOW["held"]`` keys of
+    each run are held against the CPU's (two spawned processes beside the
+    card's runs), and the chunked outcomes on the dense window against
+    the dense ones."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    from shrewd_tpu_torch.models.o3 import O3Config
+    from shrewd_tpu_torch.ops import taint_cuda
+    from shrewd_tpu_torch.ops.taint import taint_chunk
+    from shrewd_tpu_torch.tools import bigwindow
+
+    t_phase = time.monotonic()
+    plat = ["--platform", "cpu"] if NS_DEVICE == "cpu" else []
+    held, chunk, reps = WINDOW["held"], WINDOW["chunk"], WINDOW["reps"]
+    stem = os.path.splitext(os.path.basename(WINDOW["workload"]))[0]
+    path = {n: str(bigwindow.cache_path(stem, n)) for n in WINDOW["lengths"]}
+    longest = max(WINDOW["lengths"])
+    pool = cf.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    jobs = [("dense", WINDOW["dense"], None)] + \
+        [("chunked", n, chunk) for n in WINDOW["lengths"]]
+    parts = ([j for j in jobs if j[1] != longest or j[0] == "dense"],
+             [j for j in jobs if j[1] == longest and j[0] == "chunked"])
+    futs = [(part, pool.submit(window_cpu_outcomes,
+                               [(path[n], c) for _, n, c in part], held))
+            for part in parts if part]
+    kept = KeptOutcomes(held)
+    probe = K1Probe(torch)
+    chunks = None
+    d = tempfile.mkdtemp(prefix="chip_smoke_bw_rate_")
+    try:
+        # (b) the dense rate, K1's count zeroed just before it
+        probe.reset()
+        taint_cuda.taint_chunk_cuda.launches = 0
+        out = os.path.join(d, "dense.json")
+        t0 = time.monotonic()
+        _cli_stdout(bigwindow.main, [
+            "--rate", "--lengths", str(WINDOW["dense"]), "--reps",
+            str(reps), "--workload", WINDOW["workload"], "--out", out,
+            *plat])
+        t_b = time.monotonic() - t0
+        log(f"24 (b) launches, counted from 0: K1 "
+            f"{taint_cuda.taint_fast_cuda.launches}, K2 "
+            f"{taint_cuda.taint_chunk_cuda.launches}")
+        t0 = time.monotonic()
+        n_k1, k1_err = probe.read("24 (b) bigwindow dense")
+        t_k1_plain = time.monotonic() - t0
+        if n_k1 != 1 + reps:
+            fail(f"24 (b): K1 launched {n_k1} times for {1 + reps} "
+                 "run_keys")
+        if taint_cuda.taint_chunk_cuda.launches:
+            fail("24 (b): K2 launched on the dense path")
+        dense = _read_json(out)
+        (u_d, row), = dense["rate"]["rates"].items()
+        dense_kept = kept.kept[(cfg_key(O3Config()), "regfile")]
+        log(f"24 (b) bigwindow dense {u_d} µops, batch {row['batch']}: "
+            f"{row['trials_per_sec']:,} trials/s (median of {reps} after a "
+            f"warm call of {row['compile_seconds']} s), tally "
+            f"{row['tally']}; K1 {n_k1} launches, one a run_keys, == plain "
+            f"on the first ({t_k1_plain:.1f} s); {t_b:.1f} s")
+
+        # (c) the chunked rate, K2's count zeroed just before it
+        chunks = ChunkProbe(held)
+        probe.reset()
+        taint_cuda.taint_chunk_cuda.launches = 0
+        out = os.path.join(d, "chunked.json")
+        t0 = time.monotonic()
+        _cli_stdout(bigwindow.main, [
+            "--rate", "--chunked", "--chunk", str(chunk), "--lengths",
+            *map(str, WINDOW["lengths"]), "--reps", str(reps), "--workload",
+            WINDOW["workload"], "--out", out, *plat])
+        t_c = time.monotonic() - t0
+        n_k2 = taint_cuda.taint_chunk_cuda.launches
+        log(f"24 (c) launches, counted from 0: K1 "
+            f"{taint_cuda.taint_fast_cuda.launches}, K2 {n_k2}")
+        if taint_cuda.taint_fast_cuda.launches:
+            fail("24 (c): K1 launched on the chunked path")
+        fast_waves = chunks.waves - chunks.exact_waves
+        if n_k2 < 1 or n_k2 != fast_waves:
+            fail(f"24 (c): {n_k2} K2 launches for {fast_waves} fast waves")
+        t0 = time.monotonic()
+        k2_err = 0
+        for s, (a, kw, got) in sorted(chunks.first_wave.items()):
+            k2_err = max(k2_err, compare_chunk(
+                torch, got, taint_chunk(*a, **{x: v for x, v in kw.items()
+                                               if x != "stream"}),
+                f"24 (c) the first {s}-step wave"))
+        t_k2_plain = time.monotonic() - t0
+        ch_doc = _read_json(out)
+        ch_rows = dict(zip(WINDOW["lengths"],
+                           ch_doc["rate"]["rates"].items()))
+        for n, (u, row) in ch_rows.items():
+            res = row["resolution"]
+            log(f"24 (c) bigwindow chunked {u} µops, chunk {chunk} x "
+                f"{row['chunks']}, batch {row['batch']}, "
+                f"{row['lanes_per_call']} lanes a call: "
+                f"{row['trials_per_sec']:,} trials/s (median of {reps} "
+                f"after a warm call of {row['compile_seconds']} s; set-up "
+                f"{row['setup_seconds']} s), tally {row['tally']}; "
+                f"{res['waves']} waves, {res['lanes_run']} lanes run, "
+                f"{res['carried']} carried, {res['fallback_lanes']} to the "
+                f"exact fallback")
+        log(f"24 (c): K2 {n_k2} launches = {fast_waves} fast waves "
+            f"({chunks.exact_waves} exact waves beside them), the first "
+            f"wave of each chunk length == plain ({t_k2_plain:.1f} s); "
+            f"{t_c:.1f} s")
+
+        # the CPU side, lane for lane; chunked == dense on the dense window
+        t0 = time.monotonic()
+        card_out = {("dense", WINDOW["dense"]): dense_kept}
+        for n, (u, _row) in ch_rows.items():
+            card_out[("chunked", n)] = chunks.kept[int(u)]
+        for part, fut in futs:
+            for (mode, n, _c), want in zip(part, fut.result()):
+                if card_out[(mode, n)].tolist() != want:
+                    fail(f"24: {mode} {n}: the card's first {held} outcomes "
+                         "!= the CPU's")
+        if card_out[("chunked", WINDOW["dense"])].tolist() != \
+                dense_kept.tolist():
+            fail(f"24: chunked != dense on the {u_d}-µop window")
+        log(f"24: the first {held} outcomes of each run == the CPU's "
+            f"(waited {time.monotonic() - t0:.1f} s for the CPU); chunked "
+            f"== dense on the {u_d}-µop window, tally "
+            f"{np.bincount(dense_kept, minlength=4).tolist()}")
+    finally:
+        kept.close()
+        probe.close()
+        if chunks is not None:
+            chunks.close()
+        pool.shutdown()
+        shutil.rmtree(d, ignore_errors=True)
+    return {"timings": {
+        "card": card,
+        "bigwindow_dense": {"wall_s": t_b, "k1_launches": n_k1,
+                            "k1_plain_s": t_k1_plain,
+                            "rates": dense["rate"]["rates"]},
+        "bigwindow_chunked": {"wall_s": t_c, "k2_launches": n_k2,
+                              "fast_waves": fast_waves,
+                              "exact_waves": chunks.exact_waves,
+                              "k2_plain_s": t_k2_plain,
+                              "chunk": chunk,
+                              "rates": ch_doc["rate"]["rates"]},
+        "setup": {**dense["setup"], "chunked": ch_doc["setup"]},
+        "window_phase_s": time.monotonic() - t_phase},
+        "launches": {"bigwindow dense (24 b)": n_k1,
+                     "bigwindow chunked (24 c)": n_k2},
+        "k1_max_err": k1_err, "k2_max_err": k2_err}
 
 
 def _cli_run(main, argv) -> tuple[int, str, str]:
@@ -5096,26 +5421,26 @@ def join_lanes(d: str, t_start: float) -> dict:
     return results
 
 
-def start_validation_child(lift: str):
-    """Start phase 22 (b) and (c)'s child process (``--validation-child``),
-    the leader of a process group of its own that ``stop_lanes`` kills
-    whole → (its directory, its process)."""
+def start_child(part: str, *args: str):
+    """Start one of ``CHILDREN`` in a child process of this script, the
+    leader of a process group of its own that ``stop_lanes`` kills whole
+    → (its directory, its process)."""
     import os
     import tempfile
 
-    d = tempfile.mkdtemp(prefix="chip_smoke_val_child_")
+    d = tempfile.mkdtemp(prefix=f"chip_smoke_{part}_child_")
     with open(os.path.join(d, "out"), "w") as out, \
             open(os.path.join(d, "err"), "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--validation-child",
-             os.path.join(d, "result.json"), lift], stdout=out, stderr=err,
-            start_new_session=True)
-    _lanes.append(("validation_child", proc))
+            [sys.executable, os.path.abspath(__file__), "--child", part,
+             os.path.join(d, "result.json"), *args], stdout=out,
+            stderr=err, start_new_session=True)
+    _lanes.append((f"{part}_child", proc))
     return d, proc
 
 
-def join_validation_child(d: str, proc) -> dict:
-    """Wait for phase 22 (b) and (c)'s child, print its output, fail if it
+def join_child(part: str, d: str, proc) -> dict:
+    """Wait for a child of ``start_child``, print its output, fail if it
     failed → its result."""
     import os
     import shutil
@@ -5124,15 +5449,15 @@ def join_validation_child(d: str, proc) -> dict:
         rc = proc.wait(timeout=LANE_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         rc = None
-    log("phase 22 (b) and (c), run in a child process beside phases "
-        "16-17:")
+    what = CHILDREN[part][1]
+    log(f"phase {what}, run in a child process beside phases 16-17:")
     for name, stream in (("out", sys.stdout), ("err", sys.stderr)):
         with open(os.path.join(d, name)) as f:
             stream.write(f.read())
         stream.flush()
     if rc != 0:
         stop_lanes()
-        fail(f"phase 22 (b) and (c) exited rc {rc}")
+        fail(f"phase {what} exited rc {rc}")
     doc = _read_json(os.path.join(d, "result.json"))
     shutil.rmtree(d, ignore_errors=True)
     return doc
@@ -5485,8 +5810,10 @@ def main() -> int:
     cli_run.pop("until_stats")
     obs_run = obs_phase(os.path.join(lanes_dir, "keep"), card)
     shutil.rmtree(lanes_dir, ignore_errors=True)
-    # phase 22 (b) and (c) in a child process beside phases 16-17
-    child_dir, child = start_validation_child(val_run["lift"])
+    # phase 22 (b) and (c) and phase 24 (b) and (c) in two child
+    # processes beside phases 16-17
+    children = {"validation": start_child("validation", val_run["lift"]),
+                "window": start_child("window")}
     cert_run["timings"]["certify_c"] = obs_run
     log(json.dumps({"timings": cli_run["timings"]}))
     log(json.dumps({"timings": cert_run["timings"]}))
@@ -5495,13 +5822,14 @@ def main() -> int:
     log(json.dumps({"timings": fed_run["timings"]}))
     log(json.dumps({"timings": ns_run["timings"]}))
     log(json.dumps({"timings": val_run["timings"]}))
+    log(json.dumps({"timings": lanes["window_build_phase"]["timings"]}))
     log(json.dumps({"timings": strat_run["timings"]}))
     if fed_run["front"] != matrix_run["front"]:
         fail("19 (c): the federated matrix's Pareto front differs from "
              "phase 18's solo front")
     log(f"19 (c): the federated front == phase 18's solo front, bitwise "
         f"({len(fed_run['front'])} groups)")
-    log(f"phases 11-15 and 18-23 in five processes: "
+    log(f"phases 11-15, 18-23 and 24 (a) in five processes: "
         f"{time.monotonic() - t_lanes:.1f} s (lanes "
         + ", ".join(f"{n} {s:.1f} s" for n, s in lanes["lane_s"].items())
         + ")")
@@ -5510,8 +5838,10 @@ def main() -> int:
     log(json.dumps({"timings": ingest_run["timings"]}))
     ckpt_run = checkpoint_phase(torch, marks, card)
     log(json.dumps({"timings": ckpt_run["timings"]}))
-    child_run = join_validation_child(child_dir, child)
+    child_run = join_child("validation", *children["validation"])
     log(json.dumps({"timings": child_run["timings"]}))
+    window_run = join_child("window", *children["window"])
+    log(json.dumps({"timings": window_run["timings"]}))
     paths["launches"].update(cli_run["launches"])
     paths["launches"].update(mesh_run["launches"])
     paths["launches"].update(ingest_run["launches"])
@@ -5522,6 +5852,7 @@ def main() -> int:
     paths["launches"].update(ns_run["launches"])
     paths["launches"].update(child_run["launches"])
     paths["launches"].update(strat_run["launches"])
+    paths["launches"].update(window_run["launches"])
     # launches on each main path, each counted from 0 just before it
     k1_paths = {"run_keys regfile": launches, **{
         p: n for p, n in paths["launches"].items() if "chunked" not in p}}
@@ -5532,8 +5863,9 @@ def main() -> int:
                   ckpt_run["k1_max_err"], matrix_run["k1_max_err"],
                   fed_run["k1_max_err"], cert_run["k1_max_err"],
                   ns_run["k1_max_err"], child_run["k1_max_err"],
-                  strat_run["k1_max_err"])
-    k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"])
+                  strat_run["k1_max_err"], window_run["k1_max_err"])
+    k2_err = max(k2_record["max_abs_err"], ingest_run["k2_max_err"],
+                 window_run["k2_max_err"])
     k2_record.update(launches=sum(k2_paths.values()),
                      launches_by_path=k2_paths, max_abs_err=float(k2_err),
                      matches_plain=k2_err == 0)
@@ -5558,8 +5890,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--lane":
         sys.exit(lane_main(sys.argv[2], sys.argv[3]))
-    if len(sys.argv) == 4 and sys.argv[1] == "--validation-child":
-        sys.exit(validation_child_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) >= 4 and sys.argv[1] == "--child":
+        sys.exit(child_main(*sys.argv[2:]))
     if len(sys.argv) >= 3 and sys.argv[1] == "--fed-cli":
         sys.exit(fed_cli_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

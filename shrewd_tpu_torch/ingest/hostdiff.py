@@ -123,6 +123,58 @@ def build_tools(workload_c: str = "workloads/sort.c",
     return BuildPaths(wl, tracer, sfi, begin, end)
 
 
+#: attempts at a capture whose tracee misses its end: on the card's host a
+#: capture now and then stops short of its window's end or single-steps
+#: to ``max_steps`` without reaching it, and the next one does not
+CAPTURE_ATTEMPTS = 3
+
+
+def run_tracer(run, cmd: list, complete) -> subprocess.CompletedProcess:
+    """Run the ptrace capture tool ``cmd`` through ``run`` (the caller's
+    ``subprocess.run``) until ``complete(proc)`` holds, at most
+    ``CAPTURE_ATTEMPTS`` times; each attempt that falls short is reported
+    on stderr with the tracer's own last words → the last attempt."""
+    import sys
+
+    for attempt in range(1, CAPTURE_ATTEMPTS + 1):
+        proc = run(cmd, capture_output=True, text=True)
+        if complete(proc):
+            break
+        print(f"capture of {Path(cmd[-1]).name}, attempt {attempt} of "
+              f"{CAPTURE_ATTEMPTS}: rc {proc.returncode}, "
+              f"{proc.stderr.strip()[-200:]!r}", file=sys.stderr, flush=True)
+    return proc
+
+
+def window_complete(proc) -> bool:
+    """A begin-to-end capture that reached its end marker."""
+    return proc.returncode == 0
+
+
+def exit_complete(proc) -> bool:
+    """A capture to the program's exit (end marker 0) whose tracee exited,
+    rather than stepping to ``max_steps``."""
+    return proc.returncode in (0, 1) and "child exited" in proc.stderr
+
+
+def stuck(trace_bin, tail: int = 100) -> bool:
+    """The capture's last ``tail`` records are one state over and over: a
+    tracee that stopped advancing (every real step changes rip or a
+    register, ``rep`` iterations included)."""
+    from shrewd_tpu_torch.ingest.lift import read_nativetrace
+
+    steps = read_nativetrace(trace_bin).steps
+    return len(steps) > tail and bool((steps[-tail:] == steps[-1]).all())
+
+
+def passes(trace_bin, pc: int) -> bool:
+    """The capture holds a step at ``pc``."""
+    from shrewd_tpu_torch.ingest.lift import read_nativetrace
+
+    return bool((read_nativetrace(trace_bin).steps[:, 16]
+                 == np.uint64(pc)).any())
+
+
 def _capture(paths: BuildPaths, suffix: str, consume,
              build_dir: Path | None = None, max_steps: int = 2_000_000):
     """Run the ptrace capture tool into a temp file and hand the file to
@@ -131,10 +183,12 @@ def _capture(paths: BuildPaths, suffix: str, consume,
     bd = build_dir or BUILD_DIR
     trace_bin = bd / f"{paths.workload.name}_{suffix}.{os.getpid()}.bin"
     try:
-        subprocess.run([str(paths.tracer), str(trace_bin),
-                        f"{paths.begin:x}", f"{paths.end:x}",
-                        str(max_steps), str(paths.workload)],
-                       check=True, capture_output=True, text=True)
+        cmd = [str(paths.tracer), str(trace_bin), f"{paths.begin:x}",
+               f"{paths.end:x}", str(max_steps), str(paths.workload)]
+        proc = run_tracer(subprocess.run, cmd, window_complete)
+        if proc.returncode:
+            raise subprocess.CalledProcessError(proc.returncode, cmd,
+                                                proc.stdout, proc.stderr)
         return consume(trace_bin)
     finally:
         trace_bin.unlink(missing_ok=True)
@@ -189,10 +243,11 @@ def capture_and_lift_to_output(paths: BuildPaths,
     bd = build_dir or BUILD_DIR
     trace_bin = bd / f"{paths.workload.name}_full.{os.getpid()}.bin"
     try:
-        proc = subprocess.run(
+        proc = run_tracer(
+            subprocess.run,
             [str(paths.tracer), str(trace_bin), f"{paths.begin:x}", "0",
              str(max_steps), str(paths.workload)],
-            capture_output=True, text=True)
+            lambda p: exit_complete(p) and passes(trace_bin, paths.end))
         # rc 1 ("child exited mid-window") is the clean outcome with end=0
         if proc.returncode not in (0, 1) or not trace_bin.exists():
             raise RuntimeError(f"full capture failed: {proc.stderr}")
@@ -206,7 +261,8 @@ def capture_and_lift_to_output(paths: BuildPaths,
     steps = nt.steps[:-1] if len(nt.steps) else nt.steps
     ends = np.nonzero(steps[:, 16] == np.uint64(paths.end))[0]
     if len(ends) == 0:
-        raise RuntimeError("kernel_end marker never reached in full capture")
+        raise RuntimeError("kernel_end marker never reached in full "
+                           f"capture ({proc.stderr.strip()[-200:]!r})")
     window_end = int(ends[0])
     out_events = []                      # (macro_step, rsi, rdx)
     cand = np.nonzero((steps[:, 0] == 1) & (steps[:, 7] == 1))[0]

@@ -143,6 +143,7 @@ def simpoint_windows(paths, interval: int = 2000, k: int = 3,
     restore-then-rewarm without any checkpoint file in the loop."""
     import subprocess
 
+    from shrewd_tpu_torch.ingest import hostdiff as hd
     from shrewd_tpu_torch.ingest.emu import Emulator, StopEmu, elf_regions
     from shrewd_tpu_torch.ingest.lift import lift, read_nativetrace, static_decode
 
@@ -150,10 +151,12 @@ def simpoint_windows(paths, interval: int = 2000, k: int = 3,
     import os
     trace_bin = bd / f"{paths.workload.name}_sp.{os.getpid()}.bin"
     try:
-        subprocess.run(
-            [str(paths.tracer), str(trace_bin), f"{paths.begin:x}",
-             f"{paths.end:x}", str(max_steps), str(paths.workload)],
-            check=True, capture_output=True, text=True)
+        cmd = [str(paths.tracer), str(trace_bin), f"{paths.begin:x}",
+               f"{paths.end:x}", str(max_steps), str(paths.workload)]
+        proc = hd.run_tracer(subprocess.run, cmd, hd.window_complete)
+        if proc.returncode:
+            raise subprocess.CalledProcessError(proc.returncode, cmd,
+                                                proc.stdout, proc.stderr)
         nt = read_nativetrace(trace_bin)
     finally:
         trace_bin.unlink(missing_ok=True)

@@ -1573,3 +1573,44 @@ def test_validation_tool_on_card_equals_cpu(cuda, tmp_path, tool):
     (rc, card), (cpu_rc, cpu) = docs["gpu"], docs["cpu"]
     assert card["card"] and cpu["card"] is None
     assert rc == cpu_rc and scrub(card) == scrub(cpu)
+
+
+@needs_toolchain
+def test_bigwindow_on_card_equals_cpu(cuda, tmp_path):
+    """``tools.bigwindow`` on ``lzss.c``'s 4096-µop window (one capture,
+    cut at 6000 macro-steps, built once): the dense and the chunked rate
+    (chunk 1024, 4 chunks) with ``--platform gpu`` give the CPU's rows
+    on 1024 keys, tallies and resolution statistics, once the wall-clock
+    fields are set aside; and chunked == dense."""
+    import json
+
+    from shrewd_tpu_torch.tools import bigwindow
+
+    saved, bigwindow.CACHE = bigwindow.CACHE, tmp_path
+    try:
+        assert bigwindow.main(["--build", "--lengths", "4096", "--max-steps",
+                               "6000", "--out", str(tmp_path / "b.json"),
+                               "--platform", "gpu"]) == 0
+        rows = {}
+        for platform in ("gpu", "cpu"):
+            for mode in (["--batch", "1024"],
+                         ["--chunked", "--chunk", "1024", "--trials",
+                          "1024"]):
+                out = tmp_path / f"{platform}.json"
+                assert bigwindow.main(["--rate", "--lengths", "4096",
+                                       "--reps", "1", *mode, "--out",
+                                       str(out), "--platform",
+                                       platform]) == 0
+                doc = json.loads(out.read_text())
+                assert bool(doc["card"]) == (platform == "gpu")
+                row = doc["rate"]["rates"]["4096"]
+                rows[platform, doc["rate"]["mode"]] = {
+                    k: v for k, v in row.items() if k not in (
+                        "compile_seconds", "setup_seconds",
+                        "trials_per_sec")}
+    finally:
+        bigwindow.CACHE = saved
+    for mode in ("dense", "chunked"):
+        assert rows["gpu", mode] == rows["cpu", mode]
+    assert rows["gpu", "dense"]["tally"] == rows["gpu", "chunked"]["tally"]
+    assert sum(rows["gpu", "dense"]["tally"]) == 1024

@@ -25,9 +25,11 @@ tools, ``tools.northstar`` (serial, then ``--fleet --also-serial``) and
 ``tools.simpoint_avf``, on ``workloads/rotmix.c`` with ``--platform
 cpu``, and a no-jax subprocess for each validation tool
 (``timing_validate``, ``timing_effect``, ``protect_validate``,
-``strat_effect``, ``diff_artifacts``, ``threeway_diff``) runs it at a
-small size with ``--platform cpu``; without ``--platform`` each raises
-before any work on a host without a card.  The fleet's mesh, a
+``strat_effect``, ``diff_artifacts``, ``threeway_diff``) and each
+window-scale tool (``bigwindow`` on a cut ``lzss.c`` capture,
+``window_scale`` over its document) runs it at a small size with
+``--platform cpu``; without ``--platform`` each raises before any work on
+a host without a card.  The fleet's mesh, a
 federation pod's mesh, ``DesignSpace`` and the thermal factorization
 default to the card too; the port's version is the reference's."""
 
@@ -350,8 +352,9 @@ print("ok")
 """
 
 
-# the validation tools, each in a no-jax process of its own at a small
-# size on the CPU: (tool, its arguments, a check of its document)
+# the validation tools and the window-scale tools, each in a no-jax
+# process of its own at a small size on the CPU: (tool, its arguments, a
+# check of its document; window_scale collates a bigwindow run's)
 _VALIDATION = {
     "timing_validate": ([], "doc['uops'] == doc['proxy_cycles'] > 0"),
     "timing_effect": (["--workload", "workloads/rotmix.c", "--trials", "8"],
@@ -365,6 +368,12 @@ _VALIDATION = {
                         "2"], "doc['summary']['workloads_ok'] == 1"),
     "threeway_diff": (["--golden", "GOLDEN"],
                       "doc['coords'] == 2 and doc['binary_sha']"),
+    "bigwindow": (["--build", "--rate", "--chunked", "--lengths", "256",
+                   "--max-steps", "600", "--chunk", "128", "--trials", "16",
+                   "--reps", "1"],
+                  "sum(doc['rate']['rates']['256']['tally']) == 16"),
+    "window_scale": (["--chunked", "BIGWINDOW"],
+                     "list(doc['chunked_exact']) == ['256']"),
 }
 
 _NO_JAX_VALIDATION = r"""
@@ -383,6 +392,15 @@ with tempfile.TemporaryDirectory() as d, \
         with open(os.path.join(d, "golden.json"), "w") as f:
             json.dump(golden, f)
         argv[argv.index("GOLDEN")] = os.path.join(d, "golden.json")
+    if tool in ("bigwindow", "window_scale"):
+        from pathlib import Path
+        from shrewd_tpu_torch.tools import bigwindow
+        bigwindow.CACHE = Path(d)       # the windows in the temporary dir
+    if "BIGWINDOW" in argv:
+        bw = os.path.join(d, "bw.json")
+        assert bigwindow.main([*json.loads(sys.argv[4]), "--out", bw,
+                               "--platform", "cpu"]) == 0
+        argv[argv.index("BIGWINDOW")] = bw
     out = os.path.join(d, "out.json")
     rc = mod.main([*argv, "--out", out, "--platform", "cpu"])
     doc = json.load(open(out))
@@ -427,7 +445,9 @@ def test_north_star_tools_run_without_jax_or_the_reference():
 def test_validation_tools_run_without_jax_or_the_reference(tool):
     argv, check = _VALIDATION[tool]
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_VALIDATION, tool,
-                           json.dumps(argv), check], cwd=ROOT, env=_env(),
+                           json.dumps(argv), check,
+                           json.dumps(_VALIDATION["bigwindow"][0])],
+                          cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
